@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It imports nothing of JAX and nothing of the JAX package. Phases; any
+failure raises and the script exits non-zero:
+
+1. the card's name and power limit; build the CUDA kernels from
+   ``multispectral_object_detection_tpu_torch/kernels/csrc`` (one nvcc per
+   source, all at once).
+2. every kernel against its plain PyTorch version on the card, in bf16 and
+   fp32, TF32 off: LayerNorm at M=2048, the four GEMMs of a layer and the
+   attention at the CFT stages' widths, and the whole 8-layer stack.
+3. the main path: ``Detector`` on the l-scale two-stream transformerx3
+   config (nc=1, random weights from a seed, BN folded, bf16) serves three
+   requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
+   values, that the kernel launch counters rose by exactly the launches of
+   three forwards, and that the raw head outputs agree with a run through
+   the plain stack.
+4. timing with CUDA events: each kernel over one forward's launches at the
+   main path's shapes, beside its bound, its plain version and one PyTorch
+   library call for the same function; the main path's ms per batch.
+5. a ``{"kernels": [...]}`` line, the card line, and the final
+   ``{"ok": true, "device": {...}}`` line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+B, N_TOK, L, HEADS = 16, 128, 8, 8      # CFT stage on the main path
+M = B * N_TOK
+STAGE_WIDTHS = (256, 512, 1024)           # P3, P4, P5
+IMG, BATCH, REQUESTS = 640, 16, 3
+# max |kernel - plain| / max |plain|, with the reason for each bound:
+TOL_FP32 = 2e-5        # sum order only (fp32 FMA both sides, no TF32)
+TOL_BF16 = 8e-3        # both round the same fp32 value: <= 2 bf16 ulps apart
+TOL_BF16_STACK = 1.5e-2  # 8 layers of such rounding points
+TOL_BF16_MODEL = 2e-2    # through the rest of the network after 3 stages
+CFT_SOURCE = "multispectral_object_detection_tpu/ops/pallas_fusion.py:124"
+CSRC = "multispectral_object_detection_tpu_torch/kernels/csrc/"
+KERNELS = {  # name -> source
+    "cft_layernorm": CSRC + "layernorm.cu",
+    "cft_gemm_bias": CSRC + "gemm.cu",
+    "cft_gemm_gelu": CSRC + "gemm.cu",
+    "cft_gemm_residual": CSRC + "gemm.cu",
+    "cft_attention": CSRC + "attention.cu",
+}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def rel_err(got, ref) -> tuple[float, float]:
+    d = (got.float() - ref.float()).abs().max().item()
+    return d / max(ref.float().abs().max().item(), 1e-30), d
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, replays: int = 20) -> float:
+    """Device time of fn's launches: captured once in a CUDA graph and
+    replayed, so the host's cost between launches is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture (library handles, workspaces)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters=replays, warmup=2)
+
+
+def stack_inputs(C: int, dtype, gen, device):
+    """x (B, N, C) and the stack's ten weight arguments, random."""
+    import torch
+
+    def r(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, dt)
+
+    def ln():
+        return torch.stack([1 + r(L, C, scale=0.1, dt=torch.float32),
+                            r(L, C, scale=0.1, dt=torch.float32)], 1)
+
+    x = r(B, N_TOK, C)
+    w = [r(L, C, 3 * C, scale=0.02), r(L, 3 * C, scale=0.02),
+         r(L, C, C, scale=0.02), r(L, C, scale=0.02),
+         r(L, C, 4 * C, scale=0.02), r(L, 4 * C, scale=0.02),
+         r(L, 4 * C, C, scale=0.02), r(L, C, scale=0.02), ln(), ln()]
+    return x, w
+
+
+def phase_checks(torch, cs, device):
+    """Phase 2: each kernel and the whole stack against the plain twins.
+    Returns the bf16 max abs error per kernel at the main path's shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    worst = {k: 0.0 for k in KERNELS}
+
+    def report(name, dtype, shape, got, ref, tol, counter=None):
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, ref)
+        print(f"check {name:<18} {str(dtype)[6:]:<8} {shape!s:<22} "
+              f"rel={rel:.3e} tol={tol:.1e}")
+        check(rel <= tol, f"{name} {dtype} {shape}: {rel:.3e} > {tol:.1e}")
+        if counter and dtype == torch.bfloat16:
+            worst[counter] = max(worst[counter], abs_err)
+
+    def rn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, dt)
+
+    for dt in (torch.bfloat16, torch.float32):
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+        for C in STAGE_WIDTHS:
+            x = rn(M, C)
+            w, b = 1 + rn(C, scale=0.1), rn(C, scale=0.1)
+            report("layernorm", dt, (M, C), cs.layer_norm(x, w, b, dt),
+                   cs.layer_norm_plain(x, w, b, dt), tol, "cft_layernorm")
+            for K, Nout, epi in ((C, 3 * C, "bias"), (C, C, "residual"),
+                                 (C, 4 * C, "gelu"), (4 * C, C, "residual")):
+                a = rn(M, K, dt=dt)
+                ww = rn(K, Nout, scale=K ** -0.5, dt=dt)
+                bb = rn(Nout, scale=0.1, dt=dt)
+                if epi == "residual":
+                    s0 = rn(M, Nout)
+                    got = cs.linear(a, ww, bb, epi, out=s0.clone())
+                    ref = cs.linear_plain(a, ww, bb, epi, out=s0.clone())
+                else:
+                    got = cs.linear(a, ww, bb, epi)
+                    ref = cs.linear_plain(a, ww, bb, epi)
+                report(f"gemm_{epi}", dt, (M, K, Nout), got, ref, tol,
+                       f"cft_gemm_{epi}")
+        for D in (8, 32, 64, 128):
+            qkv = rn(M, 3 * HEADS * D, dt=dt)
+            report("attention", dt, (B, N_TOK, HEADS, D),
+                   cs.attention(qkv, B, HEADS), cs.attention_plain(qkv, B, HEADS),
+                   tol, "cft_attention" if D * HEADS in STAGE_WIDTHS else None)
+        for C in (64,) + STAGE_WIDTHS:
+            x, w = stack_inputs(C, dt, gen, device)
+            report("fused_cft_stack", dt, (B, N_TOK, C, L),
+                   cs.fused_cft_stack(x, *w), cs.fused_cft_stack_plain(x, *w),
+                   TOL_BF16_STACK if dt == torch.bfloat16 else TOL_FP32)
+    return worst
+
+
+def phase_main_path(torch, device):
+    """Phase 3: the Detector serves REQUESTS batches through the kernels."""
+    from multispectral_object_detection_tpu_torch.hub import Detector
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    t0 = time.perf_counter()
+    det = Detector("yolov5l_fusion_transformerx3", nc=1, img_size=IMG,
+                   dtype=torch.bfloat16, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"main path: Detector built (random weights, BN folded, bf16) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stages = [m for m in det.model.modules() if isinstance(m, CrossModalFusion)]
+    layers = sum(m.wqkv.shape[0] for m in stages)
+    per_forward = {"cft_layernorm": 2 * layers, "cft_gemm_bias": layers,
+                   "cft_gemm_gelu": layers, "cft_gemm_residual": 2 * layers,
+                   "cft_attention": layers}
+    check(len(stages) == 3 and layers == 3 * L,
+          f"expected 3 CFT stages of {L} layers, got {len(stages)}/{layers}")
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    batches = [tuple(torch.randint(0, 256, (BATCH, IMG, IMG, 3),
+                                   dtype=torch.uint8, device=device,
+                                   generator=gen) for _ in range(2))
+               for _ in range(REQUESTS)]
+    cs.reset_launches()
+    outs = [det.infer(rgb, ir) for rgb, ir in batches]
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    want = {k: REQUESTS * v for k, v in per_forward.items()}
+    print(f"main path: kernel launches over {REQUESTS} requests {launches}")
+    check(launches == want, f"launch counts {launches} != {want}")
+    for o in outs:
+        check(tuple(o.boxes.shape) == (BATCH, 300, 4)
+              and tuple(o.scores.shape) == (BATCH, 300)
+              and tuple(o.classes.shape) == (BATCH, 300)
+              and tuple(o.valid.shape) == (BATCH, 300),
+              "Detections shapes")
+        check(o.valid.dtype == torch.bool and o.classes.dtype == torch.int32,
+              "Detections dtypes")
+        check(bool(torch.isfinite(o.boxes).all() and
+                   torch.isfinite(o.scores).all()), "non-finite detections")
+        check(bool(((o.scores >= 0) & (o.scores <= 1)).all()),
+              "scores outside [0, 1]")
+    n_valid = [int(o.valid.sum()) for o in outs]
+    print(f"main path: detections per request {n_valid}")
+
+    rgb, ir = batches[0]
+    raw_k = det.raw(rgb, ir)
+    dec = det.model.decode(raw_k)
+    check(tuple(dec.shape) == (BATCH, 3 * sum((IMG // s) ** 2 for s in
+                                              (8, 16, 32)), 6),
+          f"decoded shape {tuple(dec.shape)}")
+    check(bool(torch.isfinite(dec).all()), "non-finite decoded predictions")
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack_plain
+    raw_p = det.raw(rgb, ir)
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack
+    torch.cuda.synchronize()
+    worst = max(rel_err(k, p)[0] for k, p in zip(raw_k, raw_p))
+    print(f"main path: raw head outputs, kernels vs plain stack: rel={worst:.3e}"
+          f" tol={TOL_BF16_MODEL:.1e}")
+    check(worst <= TOL_BF16_MODEL, f"raw outputs disagree: {worst:.3e}")
+    return det, batches, stages, launches
+
+
+def _gemm_cost(Mr, K, Nout, residual):
+    by = 2 * (Mr * K + K * Nout + Nout) + (8 if residual else 2) * Mr * Nout
+    return by, 2 * Mr * K * Nout + Mr * Nout
+
+
+def phase_timing(torch, F, cs, device, det, batches, stages, card):
+    """Phase 4: kernel rows (per forward of the main path) and end to end."""
+    from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
+
+    gen = torch.Generator().manual_seed(2)
+    rows = {k: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                "bound_ms": 0.0, "by_c": {}} for k in KERNELS}
+    bf = torch.bfloat16
+
+    def add(name, C, fn_k, fn_p, fn_lib, costs, kind):
+        """Device times (graph replay) of one forward's launches of a
+        kernel at stage width C, its plain twin and the library call; its
+        host-launched time."""
+        r = rows[name]
+        r["by_c"][C] = graph_ms(fn_k)
+        r["ms"] += r["by_c"][C]
+        r["eager_ms"] += cuda_ms(fn_k)
+        r["plain_ms"] += graph_ms(fn_p)
+        r["library_ms"] += graph_ms(fn_lib)
+        for by, ops in costs:
+            tb, to = by / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[kind] * 1e3
+            r["bytes_ms"] += tb
+            r["ops_ms"] += to
+            r["bound_ms"] += max(tb, to)
+
+    for C in STAGE_WIDTHS:
+        x, w = stack_inputs(C, bf, gen, device)
+        wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2 = w
+        xs = torch.randn(M, C, generator=gen).to(device)
+        h = torch.randn(M, C, generator=gen).to(device, bf)
+        t4 = torch.randn(M, 4 * C, generator=gen).to(device, bf)
+        qkv = torch.randn(M, 3 * C, generator=gen).to(device, bf)
+        ls = range(L)
+        ln_cost = [(M * C * 4 + M * C * 2 + 2 * C * 4, 8 * M * C)] * (2 * L)
+        add("cft_layernorm", C,
+            lambda: [cs.layer_norm(xs, ln[l, 0], ln[l, 1], bf)
+                     for l in ls for ln in (ln1, ln2)],
+            lambda: [cs.layer_norm_plain(xs, ln[l, 0], ln[l, 1], bf)
+                     for l in ls for ln in (ln1, ln2)],
+            lambda: [F.layer_norm(xs, (C,), ln[l, 0], ln[l, 1], 1e-5)
+                     for l in ls for ln in (ln1, ln2)],
+            ln_cost, "fp32")
+        add("cft_gemm_bias", C,
+            lambda: [cs.linear(h, wqkv[l], bqkv[l], "bias") for l in ls],
+            lambda: [cs.linear_plain(h, wqkv[l], bqkv[l], "bias") for l in ls],
+            lambda: [torch.addmm(bqkv[l], h, wqkv[l]) for l in ls],
+            [_gemm_cost(M, C, 3 * C, False)] * L, "bf16")
+        add("cft_gemm_gelu", C,
+            lambda: [cs.linear(h, w1[l], b1[l], "gelu") for l in ls],
+            lambda: [cs.linear_plain(h, w1[l], b1[l], "gelu") for l in ls],
+            lambda: [F.gelu(torch.addmm(b1[l], h, w1[l])) for l in ls],
+            [_gemm_cost(M, C, 4 * C, False)] * L, "bf16")
+        add("cft_gemm_residual", C,
+            lambda: [(cs.linear(h, wp[l], bp[l], "residual", out=xs),
+                      cs.linear(t4, w2[l], b2[l], "residual", out=xs))
+                     for l in ls],
+            lambda: [(cs.linear_plain(h, wp[l], bp[l], "residual", out=xs),
+                      cs.linear_plain(t4, w2[l], b2[l], "residual", out=xs))
+                     for l in ls],
+            lambda: [(xs.add_(torch.addmm(bp[l], h, wp[l])),
+                      xs.add_(torch.addmm(b2[l], t4, w2[l]))) for l in ls],
+            [_gemm_cost(M, C, C, True), _gemm_cost(M, 4 * C, C, True)] * L,
+            "bf16")
+        q, k, v = qkv.view(B, N_TOK, 3, HEADS, C // HEADS).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        add("cft_attention", C,
+            lambda: [cs.attention(qkv, B, HEADS) for _ in ls],
+            lambda: [cs.attention_plain(qkv, B, HEADS) for _ in ls],
+            lambda: [F.scaled_dot_product_attention(q, k, v) for _ in ls],
+            [(M * 4 * C * 2, 4 * M * N_TOK * C + 5 * B * HEADS * N_TOK ** 2)]
+            * L, "bf16")
+    torch.cuda.synchronize()
+
+    print(f"timing on: {card}")
+    print("per forward (3 stages x 8 layers), device ms from CUDA-graph "
+          "replay; eager = launched from the host one by one")
+    print("kernel              ms/fwd  eager_ms   plain_ms  library_ms  "
+          "bound_ms")
+    for name, r in rows.items():
+        r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+        print(f"{name:<18} {r['ms']:8.4f} {r['eager_ms']:9.4f} "
+              f"{r['plain_ms']:10.4f} {r['library_ms']:11.4f} "
+              f"{r['bound_ms']:9.4f} {r['bound_by']}")
+    print("device ms per stage, C = " + " / ".join(map(str, STAGE_WIDTHS)))
+    for name, r in rows.items():
+        print(f"{name:<18} " + " / ".join(f"{r['by_c'][C]:.4f}"
+                                          for C in STAGE_WIDTHS))
+
+    # end to end: one request of BATCH pairs already on the card
+    rgb, ir = batches[0]
+    ms_infer = cuda_ms(lambda: det.infer(rgb, ir), iters=10, warmup=2)
+    raw = det.raw(rgb, ir)
+    ms_post = cuda_ms(lambda: batched_nms(det.model.decode(raw), max_det=300,
+                                          top_k=1024), iters=10, warmup=2)
+    ms_fwd = cuda_ms(lambda: det.raw(rgb, ir), iters=10, warmup=2)
+    ms_fwd_dev = graph_ms(lambda: det.raw(rgb, ir), replays=10)
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack_plain
+    ms_fwd_plain = cuda_ms(lambda: det.raw(rgb, ir), iters=5, warmup=1)
+    ms_fwd_plain_dev = graph_ms(lambda: det.raw(rgb, ir), replays=5)
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack
+    # diagnostic for the conv trunk: the same forward with cuDNN autotuning
+    torch.backends.cudnn.benchmark = True
+    ms_fwd_tuned_dev = graph_ms(lambda: det.raw(rgb, ir), replays=10)
+    torch.backends.cudnn.benchmark = False
+    stack_ms = sum(r["ms"] for r in rows.values())
+    print(f"main path (bf16, bs{BATCH}, {IMG} px) on {card}: "
+          f"{ms_infer:.3f} ms/batch = {BATCH * 1e3 / ms_infer:.1f} pairs/s")
+    print(f"  forward {ms_fwd:.3f} ms launched from the host, {ms_fwd_dev:.3f}"
+          f" ms of device time (graph replay; device idle "
+          f"{1 - ms_fwd_dev / ms_fwd:.1%}); CFT kernels {stack_ms:.3f} ms of "
+          f"it; decode+NMS {ms_post:.3f} ms")
+    print(f"  forward with the plain stack: {ms_fwd_plain:.3f} ms from the "
+          f"host, {ms_fwd_plain_dev:.3f} ms device")
+    print(f"  forward with cudnn.benchmark on: {ms_fwd_tuned_dev:.3f} ms "
+          "device")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    profile_forward(torch, lambda: det.raw(rgb, ir))
+    return rows
+
+
+def profile_forward(torch, fn, runs: int = 2) -> None:
+    """Device time of the forward by kind of operation (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {  # first match wins
+        "CFT kernels": ("layernorm_kernel", "gemm_bf16_kernel",
+                        "gemm_f32_kernel", "attention_kernel"),
+        "convolution": ("fprop", "conv", "xmma", "implicit"),
+        "silu": ("silu",),
+        "other elementwise (bias add, residual add)": ("elementwise",),
+        "pooling": ("pool",),
+        "cat/copy/resize": ("cat", "copy", "upsample", "interp"),
+    }
+    per_kind = {k: 0.0 for k in kinds}
+    per_kind["other"] = 0.0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
+    if not kernels:
+        print("profile: no device events recorded; breakdown not measured")
+        return
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in name for p in pats)), "other")
+        per_kind[kind] += e.self_device_time_total / 1e3 / runs
+    print(f"profile of the forward (torch.profiler, {runs} runs): "
+          f"{total:.3f} ms of kernels per forward; " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in per_kind.items()))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / runs:8.3f} ms "
+              f"x{e.count // runs:<4} {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs one GPU",
+              file=sys.stderr)
+        return 1
+    import torch.nn.functional as F
+
+    from multispectral_object_detection_tpu_torch import kernels
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    device = torch.device("cuda:0")
+    card = card_line()
+    print(card)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = kernels.build()
+    print(f"phase 1: built {len(logs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
+                if "registers" in ln or ("spill" in ln and " 0 bytes spill"
+                                         not in ln)]
+        print(f"  {name}: {'; '.join(regs)}")
+
+    worst = phase_checks(torch, cs, device)
+    print("phase 2: every kernel matches its plain version")
+    det, batches, stages, launches = phase_main_path(torch, device)
+    print("phase 3: main path served through the kernels")
+    rows = phase_timing(torch, F, cs, device, det, batches, stages, card)
+
+    out = []
+    for name, source in KERNELS.items():
+        r = rows[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": CFT_SOURCE, "launches": launches[name],
+                    "max_abs_err": worst[name], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

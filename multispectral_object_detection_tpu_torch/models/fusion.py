@@ -1,0 +1,139 @@
+"""Cross-Modality Fusion Transformer (CFT): the fusion stage of the paper.
+
+Counterpart of ``CrossModalFusion`` in multispectral_object_detection_tpu/
+models/fusion.py, inference path only. Both modality maps are average-pooled
+to an 8x8 grid, flattened and concatenated into 128 tokens of width C, given
+a learned position embedding, run through L pre-LN transformer layers
+(ops/cft_stack.fused_cft_stack, the CUDA kernels on the GPU), layer-normed,
+split back into two 8x8 maps and bilinearly resized to the input size.
+
+Parameters carry the reference GPT names (``pos_emb``,
+``trans_blocks.{j}.ln_input/ln_output``, ``sa.que_proj/key_proj/val_proj/
+out_proj``, ``mlp.0``, ``mlp.2``, ``ln_f``), so reference state dicts load as
+they are. ``pack`` stacks the layer weights once into the kernels' (L, ...)
+layout (weights as (in, out)) and drops the per-layer modules; an unpacked
+module stacks them at every call. Dropout waits for training.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import adaptive_avg_pool_2d, bilinear_resize_2d
+from ..ops.cft_stack import fused_cft_stack
+
+_STACKED = ("wqkv", "bqkv", "wp", "bp", "w1", "b1", "w2", "b2", "ln1", "ln2")
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.que_proj = nn.Linear(d_model, d_model)
+        self.key_proj = nn.Linear(d_model, d_model)
+        self.val_proj = nn.Linear(d_model, d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+
+
+class TransformerBlock(nn.Module):
+    """Weights of one pre-LN layer (reference myTransformerBlock)."""
+
+    def __init__(self, d_model: int, block_exp: int = 4):
+        super().__init__()
+        self.ln_input = nn.LayerNorm(d_model)
+        self.ln_output = nn.LayerNorm(d_model)
+        self.sa = SelfAttention(d_model)
+        self.mlp = nn.Sequential(nn.Linear(d_model, block_exp * d_model),
+                                 nn.GELU(),
+                                 nn.Linear(block_exp * d_model, d_model))
+
+
+def _stack_layers(blocks) -> dict:
+    """Per-layer torch Linear/LayerNorm weights -> the stacked layout."""
+    def st(f):
+        return torch.stack([f(b) for b in blocks])
+
+    def ln(m):
+        return torch.stack([m.weight, m.bias])
+
+    return {
+        "wqkv": st(lambda b: torch.cat([b.sa.que_proj.weight,
+                                        b.sa.key_proj.weight,
+                                        b.sa.val_proj.weight]).t()),
+        "bqkv": st(lambda b: torch.cat([b.sa.que_proj.bias, b.sa.key_proj.bias,
+                                        b.sa.val_proj.bias])),
+        "wp": st(lambda b: b.sa.out_proj.weight.t()),
+        "bp": st(lambda b: b.sa.out_proj.bias),
+        "w1": st(lambda b: b.mlp[0].weight.t()),
+        "b1": st(lambda b: b.mlp[0].bias),
+        "w2": st(lambda b: b.mlp[2].weight.t()),
+        "b2": st(lambda b: b.mlp[2].bias),
+        "ln1": st(lambda b: ln(b.ln_input)),
+        "ln2": st(lambda b: ln(b.ln_output)),
+    }
+
+
+class CrossModalFusion(nn.Module):
+    """The CFT `GPT` stage: (rgb, ir) NCHW maps of equal shape in, a pair of
+    maps of the same shape out."""
+
+    def __init__(self, d_model: int, num_heads: int = 8, block_exp: int = 4,
+                 n_layer: int = 8, vert_anchors: int = 8,
+                 horz_anchors: int = 8):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.grid = (vert_anchors, horz_anchors)
+        self.pos_emb = nn.Parameter(
+            torch.zeros(1, 2 * vert_anchors * horz_anchors, d_model))
+        self.trans_blocks = nn.Sequential(*(TransformerBlock(d_model, block_exp)
+                                            for _ in range(n_layer)))
+        self.ln_f = nn.LayerNorm(d_model)
+        # the stack implementation; a caller may swap in its plain twin
+        self.stack_fn = fused_cft_stack
+
+    @property
+    def packed(self) -> bool:
+        return self.trans_blocks is None
+
+    @torch.no_grad()
+    def pack(self) -> None:
+        """Stack the layer weights once into the kernels' layout as buffers
+        (their dtype follows the parameters'; models.model.
+        cast_inference_params keeps ``ln*`` in fp32) and drop the per-layer
+        modules."""
+        if self.packed:
+            return
+        for name, t in _stack_layers(self.trans_blocks).items():
+            self.register_buffer(name, t.contiguous())
+        self.trans_blocks = None
+
+    def stacked_weights(self, dtype) -> list:
+        """The stack's ten weight arguments: weights and biases in ``dtype``,
+        LayerNorm parameters in fp32."""
+        if self.packed:
+            w = {k: getattr(self, k) for k in _STACKED}
+        else:
+            w = _stack_layers(self.trans_blocks)
+        return [w[k].to(torch.float32 if k.startswith("ln") else dtype)
+                .contiguous() for k in _STACKED]
+
+    def forward(self, xs):
+        rgb, ir = xs[0], xs[1]
+        b, c, h, w = rgb.shape
+        dt = rgb.dtype
+        gv, gh = self.grid
+        tokens = torch.cat([adaptive_avg_pool_2d(rgb, (gv, gh)).flatten(2),
+                            adaptive_avg_pool_2d(ir, (gv, gh)).flatten(2)],
+                           dim=2).transpose(1, 2)               # (B, 128, C)
+        x = (tokens + self.pos_emb.to(dt)).contiguous()
+        x = self.stack_fn(x, *self.stacked_weights(dt),
+                          num_heads=self.num_heads)
+        x = F.layer_norm(x.float(), (c,), self.ln_f.weight.float(),
+                         self.ln_f.bias.float(), self.ln_f.eps).to(dt)
+        n = gv * gh
+        rgb_t = x[:, :n].transpose(1, 2).reshape(b, c, gv, gh)
+        ir_t = x[:, n:].transpose(1, 2).reshape(b, c, gv, gh)
+        return tuple(bilinear_resize_2d(t, (h, w)).contiguous(
+            memory_format=torch.channels_last) for t in (rgb_t, ir_t))

@@ -1,0 +1,216 @@
+"""Graph executor: ModelSpec -> nn.Module running the compiled layer list.
+
+Counterpart of multispectral_object_detection_tpu/models/model.py (inference
+only). Layers run in row order, outputs needed later are kept in a save
+dict, multi-input rows gather from it, and rows whose ``from`` is -4 consume
+the second (IR) input. The modules sit in ``self.model`` (an
+``nn.ModuleList``), so state dict keys read ``model.{i}.…`` as in the
+reference torch model.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from . import layers as L
+from .detect import Detect, anchor_arrays, decode_predictions
+from .fusion import CrossModalFusion
+from .parser import ModelSpec, Node, parse_model_config
+
+
+def _build_module(node: Node) -> nn.Module:
+    k, a = node.kind, node.args
+    if k == "Conv":
+        return L.ConvBnAct(a[0], a[1], k=a[2] if len(a) > 2 else 1,
+                           s=a[3] if len(a) > 3 else 1,
+                           p=a[4] if len(a) > 4 else None,
+                           g=a[5] if len(a) > 5 else 1)
+    if k == "Focus":
+        return L.Focus(a[0], a[1], k=a[2] if len(a) > 2 else 1,
+                       s=a[3] if len(a) > 3 else 1)
+    if k == "Bottleneck":
+        return L.Bottleneck(a[0], a[1], shortcut=a[2] if len(a) > 2 else True)
+    if k == "C3":
+        return L.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True)
+    if k == "SPP":
+        return L.SPP(a[0], a[1], k=tuple(a[2]) if len(a) > 2 else (5, 9, 13))
+    if k == "Concat":
+        return L.Concat()
+    if k == "Add":
+        return L.Add()
+    if k == "Add2":
+        return L.Add2(index=a[1])
+    if k == "GPT":
+        return CrossModalFusion(d_model=a[0])
+    if k == "Upsample":
+        # reference rows: [None, 2, 'nearest']
+        return L.Upsample(scale=int(a[1]) if len(a) > 1 else 2,
+                          mode=str(a[2]) if len(a) > 2 else "nearest")
+    raise ValueError(f"module kind {k!r} is not ported yet")
+
+
+class DetectionModel(nn.Module):
+    """Executable detection graph over NCHW inputs scaled to [0, 1].
+
+    ``forward`` casts the inputs to ``dtype`` and returns the tuple of raw
+    per-scale Detect outputs ``((B, ny, nx, na, 5+nc), ...)``; ``decode``
+    gives flat detections.
+    """
+
+    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.spec = spec
+        self.dtype = dtype
+        mods = []
+        for node in spec.nodes:
+            if node.kind == "Detect":
+                mods.append(Detect(node.args[0], spec.anchors, spec.strides,
+                                   node.args[2]))
+            elif node.repeats > 1:
+                mods.append(nn.Sequential(*(_build_module(node)
+                                            for _ in range(node.repeats))))
+            else:
+                mods.append(_build_module(node))
+        self.model = nn.ModuleList(mods)
+
+    def forward(self, x, x2=None):
+        if self.spec.two_stream and x2 is None:
+            raise ValueError("two-stream model needs both RGB and IR inputs")
+        saved = {}
+        cur = x.to(self.dtype)
+        x2 = None if x2 is None else x2.to(self.dtype)
+        for node, mod in zip(self.spec.nodes, self.model):
+            if node.frm == (-4,) and not node.multi:
+                inp = x2
+            elif node.frm == (-1,) and not node.multi:
+                inp = cur
+            elif node.multi:
+                inp = [cur if j == -1 else saved[j] for j in node.frm]
+            else:
+                inp = saved[node.frm[0]]
+            cur = mod(inp)
+            if node.index in self.spec.save:
+                saved[node.index] = cur
+        return cur
+
+    def decode(self, feats) -> torch.Tensor:
+        return decode_predictions(feats, anchor_arrays(self.spec.anchors),
+                                  self.spec.strides)
+
+    def fuse(self) -> "DetectionModel":
+        """Inference form: fold every BatchNorm into its conv and pack the
+        CFT layer weights into the kernels' stacked layout."""
+        fuse_conv_bn(self)
+        for m in self.modules():
+            if isinstance(m, CrossModalFusion):
+                m.pack()
+        return self
+
+
+def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
+                dtype: torch.dtype = torch.float32,
+                device=None) -> DetectionModel:
+    """YAML path / dict / ModelSpec -> DetectionModel. ``device="meta"``
+    builds the structure without storage (parameter counts)."""
+    spec = cfg if isinstance(cfg, ModelSpec) else parse_model_config(
+        cfg, ch_in=ch_in, nc=nc, anchors=anchors)
+    with torch.device(device or "cpu"):
+        model = DetectionModel(spec, dtype=dtype)
+    return model.eval()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``: convs normal(0, 1/fan_in), Linear
+    normal(0, 0.02) with zero bias, norms at identity, zero position
+    embeddings and the Detect prior bias (the JAX package's initialisers)."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()  # BatchNorm: running stats too
+        elif isinstance(m, CrossModalFusion):
+            m.pos_emb.zero_()
+    for m in model.modules():
+        if isinstance(m, Detect):
+            m.init_prior_bias()
+    return model
+
+
+@torch.no_grad()
+def fuse_conv_bn(model: nn.Module, eps: Optional[float] = None) -> nn.Module:
+    """Fold each ConvBnAct's BatchNorm into its conv, in place:
+
+        weight' = weight * gamma / sqrt(var + eps)   (per output channel)
+        bias'   = beta - mean * gamma / sqrt(var + eps)
+
+    computed in fp32 (eps defaults to the BatchNorm's own, 1e-3)."""
+    for m in model.modules():
+        if isinstance(m, L.ConvBnAct) and m.bn is not None:
+            bn, conv = m.bn, m.conv
+            g = bn.weight.float() / torch.sqrt(
+                bn.running_var.float() + (bn.eps if eps is None else eps))
+            w = conv.weight.float() * g.view(-1, 1, 1, 1)
+            b = bn.bias.float() - bn.running_mean.float() * g
+            conv.weight = nn.Parameter(w, requires_grad=False)
+            conv.bias = nn.Parameter(b, requires_grad=False)
+            m.bn = None
+    return model
+
+
+def _is_norm(path: str) -> bool:
+    return any(p.startswith(("bn", "ln")) or "norm" in p
+               for p in path.split("."))
+
+
+@torch.no_grad()
+def cast_inference_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast stored float parameters and buffers to the compute dtype, in
+    place, except those under a ``bn*``/``ln*``/``*norm*`` name: BatchNorm
+    and LayerNorm compute in fp32 on purpose, so casting them would change
+    the numbers."""
+    if dtype == torch.float32:
+        return model
+    for mod_name, mod in model.named_modules():
+        for store in (mod._parameters, mod._buffers):
+            for name, t in store.items():
+                path = f"{mod_name}.{name}" if mod_name else name
+                if t is None or not t.is_floating_point() or _is_norm(path):
+                    continue
+                if isinstance(t, nn.Parameter):
+                    store[name] = nn.Parameter(t.to(dtype),
+                                               requires_grad=False)
+                else:
+                    store[name] = t.to(dtype)
+    return model
+
+
+# keys of reference state dicts that this model keeps elsewhere or not at all
+_IGNORED_SUFFIXES = ("num_batches_tracked", "anchors", "anchor_grid")
+
+
+def load_reference_state_dict(model: nn.Module, sd) -> None:
+    """Load a reference-layout state dict (values: tensors or arrays).
+
+    Detect's ``anchors``/``anchor_grid`` buffers are static in the spec and
+    BatchNorm's ``num_batches_tracked`` is unused at inference, so those keys
+    may be present or absent; every other key must match exactly."""
+    sd = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v)) for k, v in sd.items()
+          if not k.endswith(_IGNORED_SUFFIXES)}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith(_IGNORED_SUFFIXES)]
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing[:8]}, "
+                       f"unexpected {unexpected[:8]}")

@@ -1,0 +1,237 @@
+"""The CFT token transformer stack: L pre-LN layers over (B, N, C) tokens.
+
+Counterpart of multispectral_object_detection_tpu/ops/pallas_fusion.py. The
+TPU kernel runs all L layers in one call with the fp32 residual stream held
+in VMEM. On the GPU the stream (B*N, C) fp32 stays in device memory and each
+layer is seven launches of three hand-written CUDA kernels
+(kernels/csrc/*.cu):
+
+    layer_norm -> linear(bias) -> attention -> linear(residual)
+    layer_norm -> linear(gelu) -> linear(residual)
+
+Every kernel has a plain PyTorch twin beside it (``*_plain``) that repeats
+its arithmetic and rounding points. A wrapper takes the twin only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises.
+``LAUNCHES`` counts kernel launches by name, so a run can show that it went
+through the kernels.
+
+Numerics follow ``_kernel`` of pallas_fusion.py: LayerNorm statistics in
+fp32 (eps 1e-5), matmuls accumulated in fp32 with biases widened from the
+compute dtype, fp32 logits and softmax, attention probabilities rounded to
+the compute dtype, exact GELU, fp32 residual stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+LAUNCHES = {"cft_layernorm": 0, "cft_gemm_bias": 0, "cft_gemm_gelu": 0,
+            "cft_gemm_residual": 0, "cft_attention": 0}
+EPILOGUES = ("bias", "gelu", "residual")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain path), False for CUDA ones (kernel)."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
+                     "the kernels take tensors on one CUDA device, their "
+                     "plain versions CPU tensors")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_args(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+        _require(t.data_ptr() % 16 == 0,
+                 f"{name}: {arg} must be 16-byte aligned")
+
+
+def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
+    from .. import kernels
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(kernels.library(lib_name), fn)(
+            *args, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[counter] += 1
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# --------------------------------------------------------------- LayerNorm
+def layer_norm_plain(x, scale, bias, dtype, eps: float = 1e-5):
+    """x (M, C) fp32 -> LayerNorm(x) in ``dtype``; two-pass fp32 statistics."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dtype)
+
+
+def layer_norm(x, scale, bias, dtype, eps: float = 1e-5):
+    """Kernel ``cft_layernorm`` (kernels/csrc/layernorm.cu)."""
+    if _on_cpu(x, scale, bias):
+        return layer_norm_plain(x, scale, bias, dtype, eps)
+    M, C = x.shape
+    _require(x.dtype == scale.dtype == bias.dtype == torch.float32,
+             "layer_norm: x, scale and bias must be float32")
+    _require(dtype in _DTYPE_CODE, f"layer_norm: unsupported dtype {dtype}")
+    _require(C % 4 == 0 and C <= 1024, f"layer_norm: C={C} must be a "
+             "multiple of 4 and at most 1024")
+    _require(scale.shape == bias.shape == (C,), "layer_norm: scale and bias "
+             "must be (C,)")
+    out = torch.empty((M, C), dtype=dtype, device=x.device)
+    _check_args("layer_norm", x=x, scale=scale, bias=bias, out=out)
+    _launch("layernorm", "cft_layernorm", "cft_layernorm", x.device,
+            _p(x), _p(scale), _p(bias), _p(out), M, C, eps, _DTYPE_CODE[dtype])
+    return out
+
+
+# ------------------------------------------------ GEMM with fused epilogue
+def linear_plain(a, w, bias, epilogue: str, out=None):
+    """epilogue(a (M, K) . w (K, N) + bias) with an fp32 accumulator.
+
+    'bias' and 'gelu' return (M, N) in a's dtype; 'residual' adds into the
+    fp32 stream ``out`` (M, N) in place and returns it."""
+    acc = torch.matmul(a.float(), w.float())
+    if epilogue == "residual":
+        return out.add_(acc).add_(bias.float())
+    t = acc + bias.float()
+    if epilogue == "gelu":
+        t = F.gelu(t)
+    return t.to(a.dtype)
+
+
+def linear(a, w, bias, epilogue: str, out=None):
+    """Kernel ``cft_gemm`` (kernels/csrc/gemm.cu), one launch."""
+    _require(epilogue in EPILOGUES, f"linear: unknown epilogue {epilogue!r}")
+    _require((out is not None) == (epilogue == "residual"),
+             "linear: `out` is the residual stream, given only for the "
+             "'residual' epilogue")
+    tensors = (a, w, bias) + ((out,) if out is not None else ())
+    if _on_cpu(*tensors):
+        return linear_plain(a, w, bias, epilogue, out)
+    M, K = a.shape
+    N = w.shape[1]
+    _require(a.dtype == w.dtype == bias.dtype and a.dtype in _DTYPE_CODE,
+             "linear: a, w and bias must share one dtype, float32 or bfloat16")
+    _require(w.shape == (K, N) and bias.shape == (N,),
+             f"linear: w {tuple(w.shape)} / bias {tuple(bias.shape)} do not "
+             f"fit a {tuple(a.shape)}")
+    _require(M % 64 == 0 and N % 64 == 0 and K % 32 == 0,
+             f"linear: needs M % 64 == N % 64 == K % 32 == 0, got "
+             f"M={M} N={N} K={K}")
+    if out is None:
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    else:
+        _require(out.dtype == torch.float32 and out.shape == (M, N),
+                 "linear: the residual stream must be float32 (M, N)")
+    _check_args("linear", a=a, w=w, bias=bias, out=out)
+    _launch("gemm", "cft_gemm", f"cft_gemm_{epilogue}", a.device,
+            _p(a), _p(w), _p(bias), _p(out), M, N, K,
+            EPILOGUES.index(epilogue), _DTYPE_CODE[a.dtype])
+    return out
+
+
+# --------------------------------------------------------------- attention
+def attention_plain(qkv, batch: int, num_heads: int):
+    """qkv (B*N, 3C) with columns [q | k | v] -> per-(image, head)
+    softmax(QK^T / sqrt(D)) V as (B*N, C) in qkv's dtype."""
+    M, C3 = qkv.shape
+    C = C3 // 3
+    n, d = M // batch, C // num_heads
+    q, k, v = qkv.view(batch, n, 3, num_heads, d).float().unbind(2)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k)
+    att = torch.softmax(logits / math.sqrt(d), dim=-1).to(qkv.dtype)
+    o = torch.einsum("bhnm,bmhd->bnhd", att.float(), v)
+    return o.reshape(M, C).to(qkv.dtype)
+
+
+def attention(qkv, batch: int, num_heads: int):
+    """Kernel ``cft_attention`` (kernels/csrc/attention.cu)."""
+    if _on_cpu(qkv):
+        return attention_plain(qkv, batch, num_heads)
+    M, C3 = qkv.shape
+    C = C3 // 3
+    n = M // batch
+    _require(qkv.dtype in _DTYPE_CODE,
+             "attention: qkv must be float32 or bfloat16")
+    _require(C3 % 3 == 0 and M % batch == 0 and C % num_heads == 0,
+             f"attention: qkv {tuple(qkv.shape)} does not split into "
+             f"{batch} images and {num_heads} heads")
+    d = C // num_heads
+    _require(d % 8 == 0 and d <= 128, f"attention: head width {d} must be "
+             "a multiple of 8 and at most 128")
+    _require(n <= 128, f"attention: {n} tokens per image, at most 128")
+    out = torch.empty((M, C), dtype=qkv.dtype, device=qkv.device)
+    _check_args("attention", qkv=qkv, out=out)
+    _launch("attention", "cft_attention", "cft_attention", qkv.device,
+            _p(qkv), _p(out), batch, n, C, num_heads, _DTYPE_CODE[qkv.dtype])
+    return out
+
+
+# ------------------------------------------------------------ whole stack
+def _run_stack(ops, x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2,
+               num_heads: int):
+    layer_norm_fn, linear_fn, attention_fn = ops
+    B, N, C = x.shape
+    L = wqkv.shape[0]
+    shapes = {"wqkv": (wqkv, (L, C, 3 * C)), "bqkv": (bqkv, (L, 3 * C)),
+              "wp": (wp, (L, C, C)), "bp": (bp, (L, C)),
+              "w1": (w1, (L, C, 4 * C)), "b1": (b1, (L, 4 * C)),
+              "w2": (w2, (L, 4 * C, C)), "b2": (b2, (L, C)),
+              "ln1": (ln1, (L, 2, C)), "ln2": (ln2, (L, 2, C))}
+    for name, (t, want) in shapes.items():
+        _require(tuple(t.shape) == want, f"fused_cft_stack: {name} is "
+                 f"{tuple(t.shape)}, expected {want}")
+    dt = x.dtype
+    xs = torch.empty((B * N, C), dtype=torch.float32, device=x.device)
+    xs.copy_(x.reshape(B * N, C))  # fp32 residual stream, updated in place
+    for i in range(L):
+        h = layer_norm_fn(xs, ln1[i, 0], ln1[i, 1], dt)
+        qkv = linear_fn(h, wqkv[i], bqkv[i], "bias")
+        o = attention_fn(qkv, B, num_heads)
+        linear_fn(o, wp[i], bp[i], "residual", out=xs)
+        h2 = layer_norm_fn(xs, ln2[i, 0], ln2[i, 1], dt)
+        t = linear_fn(h2, w1[i], b1[i], "gelu")
+        linear_fn(t, w2[i], b2[i], "residual", out=xs)
+    return xs.to(dt).reshape(B, N, C)
+
+
+def fused_cft_stack(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
+                    num_heads: int = 8):
+    """x (B, N, C); stacked per-layer weights with a leading L axis, as in
+    pallas_fusion.fused_cft_stack: wqkv (L, C, 3C), bqkv (L, 3C),
+    wp (L, C, C), bp (L, C), w1 (L, C, 4C), b1 (L, 4C), w2 (L, 4C, C),
+    b2 (L, C) in x's dtype; ln1/ln2 (L, 2, C) [scale, bias] float32.
+    Returns (B, N, C) in x's dtype. 7 kernel launches per layer on CUDA."""
+    return _run_stack((layer_norm, linear, attention), x, wqkv, bqkv, wp, bp,
+                      w1, b1, w2, b2, ln1, ln2, num_heads)
+
+
+def fused_cft_stack_plain(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
+                          num_heads: int = 8):
+    """Plain PyTorch twin of ``fused_cft_stack`` on any device (the
+    counterpart of pallas_fusion.fused_cft_stack_reference)."""
+    return _run_stack((layer_norm_plain, linear_plain, attention_plain), x,
+                      wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, num_heads)

@@ -1,0 +1,131 @@
+"""Batched non-maximum suppression with fixed-size outputs.
+
+Counterpart of multispectral_object_detection_tpu/ops/nms.py (without the
+weighted-merge and prior-label paths, which wait for the eval slice):
+
+- candidates: conf = obj * cls, confidence gating, optional multi-label
+  expansion and class filtering;
+- top-k by a stable descending sort, so tied scores keep ascending index
+  order, as ``jax.lax.top_k`` does (``torch.topk`` orders ties otherwise);
+- class-offset trick (boxes + cls * 4096) for per-class NMS in one pass;
+- greedy argmax-and-suppress, a loop over iterations vectorised across the
+  batch, ties to the lower index, stopping once no image has a candidate;
+- fixed ``max_det`` outputs with a validity mask.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .boxes import pairwise_iou, xywh_to_xyxy
+
+_MAX_WH = 4096.0  # class-offset stride
+_NEG = -1e9
+_EXIT_CHECK_EVERY = 8  # iterations between host checks for early exit
+
+
+class Detections(NamedTuple):
+    """Fixed-size per-image detections."""
+
+    boxes: torch.Tensor    # (B, max_det, 4) xyxy, inference-canvas pixels
+    scores: torch.Tensor   # (B, max_det)
+    classes: torch.Tensor  # (B, max_det) int32
+    valid: torch.Tensor    # (B, max_det) bool
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, K, ...) rows picked by idx (B, k) -> (B, k, ...)."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+              max_det: int):
+    """Greedy NMS over (B, K, 4)/(B, K) -> kept indices (B, max_det) and
+    validity (B, max_det).
+
+    An iteration after an image's last candidate changes nothing for it,
+    so the loop may check for its early exit only every few iterations
+    (each check is a device-to-host sync)."""
+    B = scores.shape[0]
+    rows = torch.arange(B, device=scores.device)
+    work = scores.clone()
+    idxs = torch.zeros((B, max_det), dtype=torch.long, device=scores.device)
+    vals = torch.zeros((B, max_det), dtype=torch.bool, device=scores.device)
+    n = torch.zeros((B,), dtype=torch.long, device=scores.device)
+    for it in range(max_det):
+        if it % _EXIT_CHECK_EVERY == 0 and not bool(
+                (work.amax(dim=1) > _NEG / 2).any()):
+            break
+        v, i = work.max(dim=1)  # first max wins ties
+        keep = v > _NEG / 2
+        iou = pairwise_iou(boxes[rows, i][:, None, :], boxes)[:, 0]
+        work = torch.where(iou > iou_thres, _NEG, work)
+        work[rows, i] = _NEG
+        idxs[rows, n] = torch.where(keep, i, 0)
+        vals[rows, n] = keep
+        n += keep.long()
+    return idxs, vals
+
+
+def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
+                iou_thres: float = 0.45, nc: Optional[int] = None,
+                multi_label: bool = False, agnostic: bool = False,
+                max_det: int = 300, top_k: int = 4096,
+                class_mask=None) -> Detections:
+    """Batched NMS on decoded predictions (B, N, 5+nc) [xywh, obj, cls...].
+
+    class_mask: optional (nc,) bool, keep only these classes."""
+    pred = pred.float()
+    B, N, no = pred.shape
+    dev = pred.device
+    if nc is None:
+        nc = no - 5
+    if class_mask is not None:
+        class_mask = torch.as_tensor(class_mask, dtype=torch.bool, device=dev)
+    obj = pred[..., 4]
+    boxes_xyxy = xywh_to_xyxy(pred[..., :4])
+
+    if nc > 1 and multi_label:
+        # all (box, class) pairs above threshold
+        conf = obj[..., None] * pred[..., 5:]                 # (B, N, nc)
+        ok = (conf > conf_thres) & (obj > conf_thres)[..., None]
+        if class_mask is not None:
+            ok = ok & class_mask
+        flat = torch.where(ok, conf, 0.0).reshape(B, N * nc)
+        cls_of = torch.arange(nc, dtype=torch.int32, device=dev).repeat(N)
+        cls_of = cls_of.expand(B, -1)
+        box_of = torch.arange(N, device=dev).repeat_interleave(nc)
+    else:
+        # best class only
+        if nc > 1:
+            conf_c = obj[..., None] * pred[..., 5:]
+            if class_mask is not None:
+                conf_c = torch.where(class_mask, conf_c, 0.0)
+            flat, cls_of = conf_c.max(dim=-1)  # first max wins ties
+            cls_of = cls_of.int()
+        else:
+            flat = obj * pred[..., 5]
+            cls_of = torch.zeros((B, N), dtype=torch.int32, device=dev)
+        flat = torch.where((flat > conf_thres) & (obj > conf_thres), flat, 0.0)
+        box_of = torch.arange(N, device=dev)
+
+    k = min(top_k, flat.shape[1])
+    scores, sel = torch.sort(flat, dim=1, descending=True, stable=True)
+    scores, sel = scores[:, :k], sel[:, :k]
+    cls = _gather(cls_of, sel)
+    bxs = _gather(boxes_xyxy, box_of[sel])
+    scores = torch.where(scores > 0.0, scores, _NEG)
+
+    shifted = bxs if agnostic else bxs + (cls.float() * _MAX_WH)[..., None]
+    idxs, vals = _suppress(shifted, scores, iou_thres, max_det)
+
+    return Detections(
+        boxes=torch.where(vals[..., None], _gather(bxs, idxs), 0.0),
+        scores=torch.where(vals, _gather(scores, idxs), 0.0),
+        classes=torch.where(vals, _gather(cls, idxs), 0).int(),
+        valid=vals,
+    )

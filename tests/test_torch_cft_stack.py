@@ -1,0 +1,190 @@
+"""PyTorch port, CFT transformer stack: the kernels' plain twins against the
+JAX package (fp32 on the CPU), the wrappers' CPU path, and on a GPU the
+CUDA kernels against their twins."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multispectral_object_detection_tpu.ops import pallas_fusion as pf
+from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+
+def _inputs(B, C, L, seed):
+    """x (B, 128, C) and the ten stacked weight arguments, numpy fp32."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ln():
+        return np.stack([1 + f(L, C, scale=0.1), f(L, C, scale=0.1)], 1)
+
+    x = f(B, 128, C, scale=1.0)
+    return x, [f(L, C, 3 * C), f(L, 3 * C), f(L, C, C), f(L, C),
+               f(L, C, 4 * C), f(L, 4 * C), f(L, 4 * C, C), f(L, C), ln(), ln()]
+
+
+def _cast(x, ws, torch_dtype, jnp_dtype):
+    """Both sides' arguments: weights in the compute dtype, LN fp32."""
+    t = [torch.from_numpy(x).to(torch_dtype)] + [
+        torch.from_numpy(w).to(torch_dtype if i < 8 else torch.float32)
+        for i, w in enumerate(ws)]
+    j = [jnp.asarray(x, jnp_dtype)] + [
+        jnp.asarray(w, jnp_dtype if i < 8 else jnp.float32)
+        for i, w in enumerate(ws)]
+    return t, j
+
+
+@pytest.mark.parametrize("B,C,L", [(2, 64, 2), (1, 128, 2), (3, 64, 1),
+                                   (1, 256, 1)])
+def test_stack_plain_matches_jax_reference(B, C, L):
+    x, ws = _inputs(B, C, L, seed=C + L)
+    t, j = _cast(x, ws, torch.float32, jnp.float32)
+    got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
+    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_stack_plain_matches_pallas_interpret():
+    x, ws = _inputs(2, 64, 2, seed=1)
+    t, j = _cast(x, ws, torch.float32, jnp.float32)
+    got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
+    want = np.asarray(pf.fused_cft_stack(*j, num_heads=8, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_stack_bf16_rounding_points_match_jax_reference():
+    """bf16 compute: both round at the same points (qkv, attention
+    probabilities, head outputs, fc1); 2 layers of bf16 rounding allow a
+    few bf16 ulps of the largest output."""
+    x, ws = _inputs(2, 64, 2, seed=2)
+    t, j = _cast(x, ws, torch.bfloat16, jnp.bfloat16)
+    got = cs.fused_cft_stack_plain(*t, num_heads=8).float().numpy()
+    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8),
+                      np.float32)
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_plain_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((256, 64)).astype(np.float32) * 3 + 1
+    s = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(64)).astype(np.float32)
+    got = cs.layer_norm_plain(torch.from_numpy(x), torch.from_numpy(s),
+                              torch.from_numpy(b), getattr(torch, dtype))
+    want = pf._ln(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b)).astype(
+        getattr(jnp, dtype))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=1e-5 if dtype == "float32" else 8e-3,
+                               atol=1e-5 if dtype == "float32" else 8e-3)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_linear_plain_matches_jax(epilogue):
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((128, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 192)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(192).astype(np.float32)
+    s = rng.standard_normal((128, 192)).astype(np.float32)
+    acc = jnp.dot(jnp.asarray(a), jnp.asarray(w)) + jnp.asarray(b)
+    if epilogue == "residual":
+        want = jnp.asarray(s) + jnp.dot(jnp.asarray(a), jnp.asarray(w)) + b
+        got = cs.linear_plain(torch.from_numpy(a), torch.from_numpy(w),
+                              torch.from_numpy(b), epilogue,
+                              out=torch.from_numpy(s.copy()))
+    else:
+        want = pf._gelu_exact(acc) if epilogue == "gelu" else acc
+        got = cs.linear_plain(torch.from_numpy(a), torch.from_numpy(w),
+                              torch.from_numpy(b), epilogue)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("heads,d", [(8, 8), (8, 16), (4, 32)])
+def test_attention_plain_matches_jax(heads, d):
+    rng = np.random.default_rng(5)
+    B, N, C = 2, 128, heads * d
+    qkv = rng.standard_normal((B * N, 3 * C)).astype(np.float32)
+    q4 = jnp.asarray(qkv).reshape(B, N, 3, heads, d)
+    logits = jnp.einsum("bnhd,bmhd->bhnm", q4[:, :, 0], q4[:, :, 1])
+    att = jax.nn.softmax(logits / jnp.sqrt(jnp.float32(d)), axis=-1)
+    want = jnp.einsum("bhnm,bmhd->bnhd", att, q4[:, :, 2]).reshape(B * N, C)
+    got = cs.attention_plain(torch.from_numpy(qkv), B, heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def _wrapper_cases():
+    rng = np.random.default_rng(6)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    x, ws = _inputs(1, 64, 1, seed=7)
+    stack_args = [torch.from_numpy(x)] + [torch.from_numpy(w) for w in ws]
+    a, w, b, s = t(128, 64), t(64, 64), t(64), t(128, 64)
+    qkv = t(256, 192)
+    return {
+        "layer_norm": (lambda: cs.layer_norm(s, b, b, torch.bfloat16),
+                       lambda: cs.layer_norm_plain(s, b, b, torch.bfloat16)),
+        "linear_bias": (lambda: cs.linear(a, w, b, "bias"),
+                        lambda: cs.linear_plain(a, w, b, "bias")),
+        "linear_gelu": (lambda: cs.linear(a, w, b, "gelu"),
+                        lambda: cs.linear_plain(a, w, b, "gelu")),
+        "linear_residual": (
+            lambda: cs.linear(a, w, b, "residual", out=s.clone()),
+            lambda: cs.linear_plain(a, w, b, "residual", out=s.clone())),
+        "attention": (lambda: cs.attention(qkv, 2, 8),
+                      lambda: cs.attention_plain(qkv, 2, 8)),
+        "fused_cft_stack": (lambda: cs.fused_cft_stack(*stack_args),
+                            lambda: cs.fused_cft_stack_plain(*stack_args)),
+    }
+
+
+@pytest.mark.parametrize("name", ["layer_norm", "linear_bias", "linear_gelu",
+                                  "linear_residual", "attention",
+                                  "fused_cft_stack"])
+def test_wrapper_on_cpu_takes_plain_path_and_counts_nothing(name):
+    kernel_fn, plain_fn = _wrapper_cases()[name]
+    cs.reset_launches()
+    assert torch.equal(kernel_fn(), plain_fn())
+    assert all(v == 0 for v in cs.LAUNCHES.values()), cs.LAUNCHES
+
+
+def test_wrappers_reject_mixed_devices_and_misused_out():
+    x = torch.zeros(128, 64)
+    with pytest.raises(ValueError):
+        cs.layer_norm(x, torch.zeros(64, device="meta"), torch.zeros(64),
+                      torch.float32)
+    with pytest.raises(ValueError):
+        cs.linear(x, torch.zeros(64, 64), torch.zeros(64), "bias", out=x)
+    with pytest.raises(ValueError):
+        cs.linear(x, torch.zeros(64, 64), torch.zeros(64), "relu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc to build the kernels")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.5e-2)])
+def test_cuda_stack_matches_plain(cuda_device, dtype, tol):
+    x, ws = _inputs(4, 256, 2, seed=8)
+    t, _ = _cast(x, ws, dtype, jnp.float32)
+    t = [v.to(cuda_device) for v in t]
+    cs.reset_launches()
+    got = cs.fused_cft_stack(*t).float()
+    torch.cuda.synchronize()
+    want = cs.fused_cft_stack_plain(*t).float()
+    assert cs.LAUNCHES["cft_attention"] == 2
+    assert (got - want).abs().max() <= tol * want.abs().max()

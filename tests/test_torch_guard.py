@@ -1,0 +1,89 @@
+"""PyTorch port, guards: the package stands alone (no JAX, no flax, nothing
+of the JAX package, no yaml or cv2 at import), its entry points default to
+CUDA and refuse to fall back to the CPU, and chip_smoke.py fails without a
+GPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from multispectral_object_detection_tpu_torch import kernels
+from multispectral_object_detection_tpu_torch.hub import Detector
+from multispectral_object_detection_tpu_torch.models.configs import (
+    yolov5_two_stream)
+from multispectral_object_detection_tpu_torch.utils.general import (
+    select_device)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "yaml", "cv2"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import multispectral_object_detection_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+jax_pkg = [n for n in sys.modules if n == "multispectral_object_detection_tpu"
+           or n.startswith("multispectral_object_detection_tpu.")]
+assert not jax_pkg, jax_pkg
+print("imported", len([n for n in sys.modules if n.startswith(pkg.__name__)]))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15  # every module of the package
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+
+
+def test_detector_without_device_refuses_the_cpu():
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Detector()
+
+
+@pytest.mark.parametrize("device,want", [(None, None), ("cuda", None),
+                                         ("cuda:0", None), ("cpu", "cpu")])
+def test_select_device(device, want):
+    if want is None:
+        _require_no_cuda()
+        with pytest.raises(RuntimeError):
+            select_device(device)
+    else:
+        assert select_device(device) == torch.device(want)
+
+
+def test_detector_rejects_malformed_batches():
+    det = Detector(yolov5_two_stream("n", nc=1), nc=1, img_size=64,
+                   dtype=torch.float32, device="cpu")
+    good = np.zeros((1, 64, 64, 3), np.uint8)
+    for bad in (good.astype(np.float32), np.zeros((1, 32, 32, 3), np.uint8),
+                np.zeros((64, 64, 3), np.uint8)):
+        with pytest.raises(ValueError):
+            det.infer(bad, good)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels._nvcc()
+
+
+def test_chip_smoke_without_gpu_fails_and_prints_no_result():
+    _require_no_cuda()
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
