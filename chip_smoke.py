@@ -10,17 +10,29 @@ failure raises and the script exits non-zero:
    source, all at once).
 2. every kernel against its plain PyTorch version on the card, in bf16 and
    fp32, TF32 off: LayerNorm at M=2048, the four GEMMs of a layer and the
-   attention at the CFT stages' widths, and the whole 8-layer stack.
+   attention at the CFT stages' widths of the l and x scales (C up to 1280,
+   head width up to 160), the whole 8-layer stack, and the fused C3
+   bottleneck (K2) at the shapes of the l@640 and x@1024 bench legs and at
+   an odd shape.
 3. the main path: ``Detector`` on the l-scale two-stream transformerx3
    config (nc=1, random weights from a seed, BN folded, bf16) serves three
    requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
    values, that the kernel launch counters rose by exactly the launches of
-   three forwards, and that the raw head outputs agree with a run through
-   the plain stack.
-4. timing with CUDA events: each kernel over one forward's launches at the
-   main path's shapes, beside its bound, its plain version and one PyTorch
-   library call for the same function; the main path's ms per batch.
-5. a ``{"kernels": [...]}`` line, the card line, and the final
+   three forwards (K2 none: it is off by default), and that the raw head
+   outputs agree with a run through the plain stack.
+4. the port's bench (``multispectral_object_detection_tpu_torch.bench``) at
+   full width, a few batches per leg: default, ``--c3-kernel``, ``--int8``,
+   ``--tta --c3-kernel``, ``--fp32-params``, ``--no-nms`` at l@640 bs16, and
+   ``--c3-kernel`` at x@1024 bs8. Checks each leg's launch counts (K2 at
+   exactly 42 blocks of two launches per l forward, 24 per x forward) and
+   that the ``--c3-kernel`` forward agrees with one through K2's plain
+   version.
+5. timing with CUDA events: each kernel over one forward's launches at the
+   main path's shapes (K2 at the ``--c3-kernel`` leg's), beside its bound,
+   its plain version and one PyTorch library call for the same function;
+   LayerNorm and attention at the x scale's P5 stage; the main path's ms
+   per batch.
+6. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -38,20 +50,28 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 B, N_TOK, L, HEADS = 16, 128, 8, 8      # CFT stage on the main path
 M = B * N_TOK
 STAGE_WIDTHS = (256, 512, 1024)           # P3, P4, P5
+X_P5 = 1280                               # the x scale's P5 stage
 IMG, BATCH, REQUESTS = 640, 16, 3
+# K2 blocks of one l@640 bs16 forward with --c3-kernel: (B, H, W, C), count
+K2_BLOCKS = (((16, 160, 160, 64), 6), ((16, 80, 80, 128), 18),
+             ((16, 40, 40, 256), 18))
+K2_X_SHAPE = (8, 64, 64, 320)             # x@1024 bs8, 24 blocks
+K2_ODD_SHAPE = (2, 17, 23, 64)
 # max |kernel - plain| / max |plain|, with the reason for each bound:
 TOL_FP32 = 2e-5        # sum order only (fp32 FMA both sides, no TF32)
 TOL_BF16 = 8e-3        # both round the same fp32 value: <= 2 bf16 ulps apart
 TOL_BF16_STACK = 1.5e-2  # 8 layers of such rounding points
 TOL_BF16_MODEL = 2e-2    # through the rest of the network after 3 stages
 CFT_SOURCE = "multispectral_object_detection_tpu/ops/pallas_fusion.py:124"
+C3_SOURCE = "multispectral_object_detection_tpu/ops/pallas_c3.py:100"
 CSRC = "multispectral_object_detection_tpu_torch/kernels/csrc/"
-KERNELS = {  # name -> source
-    "cft_layernorm": CSRC + "layernorm.cu",
-    "cft_gemm_bias": CSRC + "gemm.cu",
-    "cft_gemm_gelu": CSRC + "gemm.cu",
-    "cft_gemm_residual": CSRC + "gemm.cu",
-    "cft_attention": CSRC + "attention.cu",
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "cft_layernorm": (CSRC + "layernorm.cu", CFT_SOURCE),
+    "cft_gemm_bias": (CSRC + "gemm.cu", CFT_SOURCE),
+    "cft_gemm_gelu": (CSRC + "gemm.cu", CFT_SOURCE),
+    "cft_gemm_residual": (CSRC + "gemm.cu", CFT_SOURCE),
+    "cft_attention": (CSRC + "attention.cu", CFT_SOURCE),
+    "c3_bottleneck": (CSRC + "c3_bottleneck.cu", C3_SOURCE),
 }
 
 
@@ -122,9 +142,22 @@ def stack_inputs(C: int, dtype, gen, device):
     return x, w
 
 
-def phase_checks(torch, cs, device):
+def k2_inputs(shape, dtype, bias_dtype, gen, device):
+    """x (B, H, W, C) and K2's weights w1 (C, C), b1, w2 (9, C, C), b2."""
+    import torch
+
+    C = shape[-1]
+
+    def r(*s, scale=1.0, dt=dtype):
+        return (torch.randn(*s, generator=gen) * scale).to(device, dt)
+
+    return (r(*shape), r(C, C, scale=C ** -0.5), r(C, scale=0.1, dt=bias_dtype),
+            r(9, C, C, scale=(9 * C) ** -0.5), r(C, scale=0.1, dt=bias_dtype))
+
+
+def phase_checks(torch, cs, k2, device):
     """Phase 2: each kernel and the whole stack against the plain twins.
-    Returns the bf16 max abs error per kernel at the main path's shapes."""
+    Returns the bf16 max abs error per kernel at the main paths' shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
@@ -144,7 +177,7 @@ def phase_checks(torch, cs, device):
 
     for dt in (torch.bfloat16, torch.float32):
         tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
-        for C in STAGE_WIDTHS:
+        for C in STAGE_WIDTHS + (X_P5,):
             x = rn(M, C)
             w, b = 1 + rn(C, scale=0.1), rn(C, scale=0.1)
             report("layernorm", dt, (M, C), cs.layer_norm(x, w, b, dt),
@@ -163,16 +196,29 @@ def phase_checks(torch, cs, device):
                     ref = cs.linear_plain(a, ww, bb, epi)
                 report(f"gemm_{epi}", dt, (M, K, Nout), got, ref, tol,
                        f"cft_gemm_{epi}")
-        for D in (8, 32, 64, 128):
+        for D in (8, 32, 64, 128, 136, X_P5 // HEADS):
             qkv = rn(M, 3 * HEADS * D, dt=dt)
             report("attention", dt, (B, N_TOK, HEADS, D),
                    cs.attention(qkv, B, HEADS), cs.attention_plain(qkv, B, HEADS),
-                   tol, "cft_attention" if D * HEADS in STAGE_WIDTHS else None)
-        for C in (64,) + STAGE_WIDTHS:
+                   tol, "cft_attention"
+                   if D * HEADS in STAGE_WIDTHS + (X_P5,) else None)
+        for C in (64,) + STAGE_WIDTHS + (X_P5,):
             x, w = stack_inputs(C, dt, gen, device)
             report("fused_cft_stack", dt, (B, N_TOK, C, L),
                    cs.fused_cft_stack(x, *w), cs.fused_cft_stack_plain(x, *w),
                    TOL_BF16_STACK if dt == torch.bfloat16 else TOL_FP32)
+        # K2; in bf16 with bf16 biases (the cast model) and fp32 ones
+        # (--fp32-params)
+        main_shapes = tuple(sh for sh, _ in K2_BLOCKS) + (K2_X_SHAPE,)
+        for shape in main_shapes + (K2_ODD_SHAPE,):
+            for bdt in ((dt,) if dt == torch.float32
+                        else (dt, torch.float32)):
+                args = k2_inputs(shape, dt, bdt, gen, device)
+                name = "c3_bottleneck" + (" b32" if bdt != dt else "")
+                report(name, dt, shape, k2.c3_bottleneck(*args),
+                       k2.c3_bottleneck_plain(*args), tol,
+                       "c3_bottleneck" if shape in main_shapes else None)
+                del args
     return worst
 
 
@@ -181,6 +227,7 @@ def phase_main_path(torch, device):
     from multispectral_object_detection_tpu_torch.hub import Detector
     from multispectral_object_detection_tpu_torch.models.fusion import (
         CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     t0 = time.perf_counter()
@@ -204,10 +251,12 @@ def phase_main_path(torch, device):
                                    generator=gen) for _ in range(2))
                for _ in range(REQUESTS)]
     cs.reset_launches()
+    k2.reset_launches()
     outs = [det.infer(rgb, ir) for rgb, ir in batches]
     torch.cuda.synchronize()
-    launches = dict(cs.LAUNCHES)
+    launches = {**cs.LAUNCHES, **k2.LAUNCHES}
     want = {k: REQUESTS * v for k, v in per_forward.items()}
+    want["c3_bottleneck"] = 0  # off by default, as in the JAX package
     print(f"main path: kernel launches over {REQUESTS} requests {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     for o in outs:
@@ -245,26 +294,129 @@ def phase_main_path(torch, device):
     return det, batches, stages, launches
 
 
+def phase_bench(torch, device):
+    """Phase 4: every leg of the port's bench at full width, a few batches
+    each, with the launch counts of each leg's run, and the device ms of one
+    forward (graph replay) of the default, --c3-kernel and x legs. Returns
+    the legs' result lines and the K2 launches of the --c3-kernel leg."""
+    from multispectral_object_detection_tpu_torch import bench
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.models.layers import (
+        Bottleneck)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    few = ["--iters", "5", "--warmup", "1"]
+    x_leg = ["--scale", "x", "--img", "1024", "--batch", "8", "--c3-kernel"]
+    legs = [[], ["--c3-kernel"], ["--int8"], ["--tta", "--c3-kernel"],
+            ["--fp32-params"], ["--no-nms"], x_leg]
+    results, fwd_ms, k2_launches = {}, {}, None
+    for leg in legs:
+        name = " ".join(leg) or "default"
+        args = bench.parse_args(leg + few)
+        t0 = time.perf_counter()
+        model, infer, rgb, ir = bench.prepare(args)
+        stages = [m for m in model.modules() if isinstance(m, CrossModalFusion)]
+        blocks = [m for m in model.modules()
+                  if isinstance(m, Bottleneck) and m.takes_kernel]
+        layers = sum(m.wqkv.shape[0] for m in stages)
+        print(f"bench leg {name}: built in {time.perf_counter() - t0:.1f} s; "
+              f"CFT stages C={[m.d_model for m in stages]}, K2 blocks "
+              f"{len(blocks)} at C={sorted({m.cv1.conv.out_channels for m in blocks})}")
+        cs.reset_launches()
+        k2.reset_launches()
+        res = bench.measure(args, infer, rgb, ir)
+        torch.cuda.synchronize()
+        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        fw = res["forwards"]
+        want = {"cft_layernorm": 2 * layers * fw, "cft_gemm_bias": layers * fw,
+                "cft_gemm_gelu": layers * fw,
+                "cft_gemm_residual": 2 * layers * fw,
+                "cft_attention": layers * fw,
+                "c3_bottleneck": 2 * len(blocks) * fw}
+        print(f"bench leg {name}: {fw} forwards, launches {got}")
+        check(got == want, f"leg {name}: launch counts {got} != {want}")
+        want_blocks = {"--c3-kernel": 42, "--tta --c3-kernel": 42,
+                       " ".join(x_leg): 24}.get(name, 0)
+        check(len(blocks) == want_blocks,
+              f"leg {name}: {len(blocks)} K2 blocks, expected {want_blocks}")
+        if leg is x_leg:
+            check([m.d_model for m in stages] == [320, 640, X_P5] and
+                  {m.cv1.conv.out_channels for m in blocks} == {320},
+                  "x leg: CFT widths or K2 widths differ from 320/640/1280 "
+                  "and 320")
+        out = infer(rgb, ir)
+        vals = [out] if args.no_nms else [out.boxes, out.scores]
+        check(all(bool(torch.isfinite(v).all()) for v in vals),
+              f"leg {name}: non-finite output")
+        x, x2 = (t.permute(0, 3, 1, 2).float() / 255.0 for t in (rgb, ir))
+        if name in ("default", "--c3-kernel") or leg is x_leg:
+            with torch.inference_mode():
+                fwd_ms[name] = graph_ms(lambda: model(x, x2), replays=10)
+        if name == "--c3-kernel":
+            k2_launches = got["c3_bottleneck"]
+            with torch.inference_mode():
+                raw_k = model(x, x2)
+                for m in blocks:
+                    m.c3_fn = k2.c3_bottleneck_plain
+                raw_p = model(x, x2)
+            torch.cuda.synchronize()
+            worst = max(rel_err(a, b)[0] for a, b in zip(raw_k, raw_p))
+            print(f"bench leg {name}: raw head outputs, K2 vs its plain "
+                  f"version: rel={worst:.3e} tol={TOL_BF16_MODEL:.1e}")
+            check(worst <= TOL_BF16_MODEL, f"K2 forward disagrees: {worst:.3e}")
+        print(json.dumps(res))
+        print(res["card"])
+        results[name] = res
+        del model, infer, rgb, ir, out, vals, x, x2, stages, blocks
+        torch.cuda.empty_cache()
+    print("bench forward, device ms (graph replay): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in fwd_ms.items()))
+    return results, k2_launches
+
+
+def k2_library(x, w1, b1, w2, b2):
+    """K2's function as the port computes it without the flag, on cuDNN:
+    conv(+b1) -> SiLU -> conv(+b2) -> SiLU -> + x, NCHW channels_last. Its
+    arguments from K2's (NHWC x, w1 (C, C), w2 (9, C, C))."""
+    import torch
+    import torch.nn.functional as F
+
+    C = x.shape[-1]
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)
+    wa = w1.t().reshape(C, C, 1, 1).contiguous(memory_format=cl)
+    wb = w2.reshape(3, 3, C, C).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    return lambda: xc + F.silu(F.conv2d(F.silu(F.conv2d(xc, wa, b1)), wb, b2,
+                                        padding=1))
+
+
 def _gemm_cost(Mr, K, Nout, residual):
     by = 2 * (Mr * K + K * Nout + Nout) + (8 if residual else 2) * Mr * Nout
     return by, 2 * Mr * K * Nout + Mr * Nout
 
 
-def phase_timing(torch, F, cs, device, det, batches, stages, card):
-    """Phase 4: kernel rows (per forward of the main path) and end to end."""
+def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
+    """Phase 5: kernel rows (per forward of the main paths) and end to end."""
     from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
 
     gen = torch.Generator().manual_seed(2)
-    rows = {k: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+
+    def new_row():
+        return {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                "bound_ms": 0.0, "by_c": {}} for k in KERNELS}
+                "bound_ms": 0.0, "by_c": {}}
+
+    rows = {k: new_row() for k in KERNELS}
+    # LayerNorm and attention at the x scale's P5 stage (x@1024 bs8)
+    xrows = {"cft_layernorm": new_row(), "cft_attention": new_row()}
     bf = torch.bfloat16
 
-    def add(name, C, fn_k, fn_p, fn_lib, costs, kind):
+    def add(r, C, fn_k, fn_p, fn_lib, costs, kind):
         """Device times (graph replay) of one forward's launches of a
-        kernel at stage width C, its plain twin and the library call; its
+        kernel at width C, its plain twin and the library call; its
         host-launched time."""
-        r = rows[name]
         r["by_c"][C] = graph_ms(fn_k)
         r["ms"] += r["by_c"][C]
         r["eager_ms"] += cuda_ms(fn_k)
@@ -276,6 +428,13 @@ def phase_timing(torch, F, cs, device, det, batches, stages, card):
             r["ops_ms"] += to
             r["bound_ms"] += max(tb, to)
 
+    def ln_cost(Mr, C):
+        return (Mr * C * 4 + Mr * C * 2 + 2 * C * 4, 8 * Mr * C)
+
+    def attn_cost(Bq, C):
+        Mr = Bq * N_TOK
+        return (Mr * 4 * C * 2, 4 * Mr * N_TOK * C + 5 * Bq * HEADS * N_TOK ** 2)
+
     for C in STAGE_WIDTHS:
         x, w = stack_inputs(C, bf, gen, device)
         wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2 = w
@@ -284,26 +443,25 @@ def phase_timing(torch, F, cs, device, det, batches, stages, card):
         t4 = torch.randn(M, 4 * C, generator=gen).to(device, bf)
         qkv = torch.randn(M, 3 * C, generator=gen).to(device, bf)
         ls = range(L)
-        ln_cost = [(M * C * 4 + M * C * 2 + 2 * C * 4, 8 * M * C)] * (2 * L)
-        add("cft_layernorm", C,
+        add(rows["cft_layernorm"], C,
             lambda: [cs.layer_norm(xs, ln[l, 0], ln[l, 1], bf)
                      for l in ls for ln in (ln1, ln2)],
             lambda: [cs.layer_norm_plain(xs, ln[l, 0], ln[l, 1], bf)
                      for l in ls for ln in (ln1, ln2)],
             lambda: [F.layer_norm(xs, (C,), ln[l, 0], ln[l, 1], 1e-5)
                      for l in ls for ln in (ln1, ln2)],
-            ln_cost, "fp32")
-        add("cft_gemm_bias", C,
+            [ln_cost(M, C)] * (2 * L), "fp32")
+        add(rows["cft_gemm_bias"], C,
             lambda: [cs.linear(h, wqkv[l], bqkv[l], "bias") for l in ls],
             lambda: [cs.linear_plain(h, wqkv[l], bqkv[l], "bias") for l in ls],
             lambda: [torch.addmm(bqkv[l], h, wqkv[l]) for l in ls],
             [_gemm_cost(M, C, 3 * C, False)] * L, "bf16")
-        add("cft_gemm_gelu", C,
+        add(rows["cft_gemm_gelu"], C,
             lambda: [cs.linear(h, w1[l], b1[l], "gelu") for l in ls],
             lambda: [cs.linear_plain(h, w1[l], b1[l], "gelu") for l in ls],
             lambda: [F.gelu(torch.addmm(b1[l], h, w1[l])) for l in ls],
             [_gemm_cost(M, C, 4 * C, False)] * L, "bf16")
-        add("cft_gemm_residual", C,
+        add(rows["cft_gemm_residual"], C,
             lambda: [(cs.linear(h, wp[l], bp[l], "residual", out=xs),
                       cs.linear(t4, w2[l], b2[l], "residual", out=xs))
                      for l in ls],
@@ -316,29 +474,76 @@ def phase_timing(torch, F, cs, device, det, batches, stages, card):
             "bf16")
         q, k, v = qkv.view(B, N_TOK, 3, HEADS, C // HEADS).permute(
             2, 0, 3, 1, 4).unbind(0)
-        add("cft_attention", C,
+        add(rows["cft_attention"], C,
             lambda: [cs.attention(qkv, B, HEADS) for _ in ls],
             lambda: [cs.attention_plain(qkv, B, HEADS) for _ in ls],
             lambda: [F.scaled_dot_product_attention(q, k, v) for _ in ls],
-            [(M * 4 * C * 2, 4 * M * N_TOK * C + 5 * B * HEADS * N_TOK ** 2)]
-            * L, "bf16")
+            [attn_cost(B, C)] * L, "bf16")
+
+    # x scale, P5 stage: C = 1280, head width 160, 8 images of 128 tokens
+    Bx, C = 8, X_P5
+    Mx = Bx * N_TOK
+    ln1 = stack_inputs(C, bf, gen, device)[1][8]
+    xs = torch.randn(Mx, C, generator=gen).to(device)
+    qkv = torch.randn(Mx, 3 * C, generator=gen).to(device, bf)
+    q, k, v = qkv.view(Bx, N_TOK, 3, HEADS, C // HEADS).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    add(xrows["cft_layernorm"], C,
+        lambda: [cs.layer_norm(xs, ln1[l % L, 0], ln1[l % L, 1], bf)
+                 for l in range(2 * L)],
+        lambda: [cs.layer_norm_plain(xs, ln1[l % L, 0], ln1[l % L, 1], bf)
+                 for l in range(2 * L)],
+        lambda: [F.layer_norm(xs, (C,), ln1[l % L, 0], ln1[l % L, 1], 1e-5)
+                 for l in range(2 * L)],
+        [ln_cost(Mx, C)] * (2 * L), "fp32")
+    add(xrows["cft_attention"], C,
+        lambda: [cs.attention(qkv, Bx, HEADS) for _ in range(L)],
+        lambda: [cs.attention_plain(qkv, Bx, HEADS) for _ in range(L)],
+        lambda: [F.scaled_dot_product_attention(q, k, v) for _ in range(L)],
+        [attn_cost(Bx, C)] * L, "bf16")
+
+    # K2: the 42 blocks of one l@640 bs16 forward with --c3-kernel, each on
+    # inputs of its own (no L2 reuse between blocks)
+    for shape, n in K2_BLOCKS:
+        blocks = [k2_inputs(shape, bf, bf, gen, device) for _ in range(n)]
+        libs = [k2_library(*b) for b in blocks]
+        P, C = shape[0] * shape[1] * shape[2], shape[3]
+        cost = (2 * (2 * P * C + 10 * C * C + 2 * C), 20 * P * C * C)
+        add(rows["c3_bottleneck"], C,
+            lambda: [k2.c3_bottleneck(*b) for b in blocks],
+            lambda: [k2.c3_bottleneck_plain(*b) for b in blocks],
+            lambda: [f() for f in libs], [cost] * n, "bf16")
+        del blocks, libs
     torch.cuda.synchronize()
+    # the two-launch design's own floor: it also writes z, reads it back and
+    # reads x a second time for the residual
+    floor_2l = 0.0
+    for shape, n in K2_BLOCKS:
+        P, C = shape[0] * shape[1] * shape[2], shape[3]
+        floor_2l += n * max(2 * (5 * P * C + 10 * C * C + 2 * C)
+                            / PEAK_BYTES_PER_S, 20 * P * C * C
+                            / PEAK_FLOPS["bf16"]) * 1e3
 
     print(f"timing on: {card}")
-    print("per forward (3 stages x 8 layers), device ms from CUDA-graph "
-          "replay; eager = launched from the host one by one")
+    print("per forward (3 stages x 8 layers; K2: 42 blocks), device ms from "
+          "CUDA-graph replay; eager = launched from the host one by one")
     print("kernel              ms/fwd  eager_ms   plain_ms  library_ms  "
           "bound_ms")
-    for name, r in rows.items():
+    for name, r in list(rows.items()) + [(f"x {k}", r) for k, r in
+                                         xrows.items()]:
         r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
         print(f"{name:<18} {r['ms']:8.4f} {r['eager_ms']:9.4f} "
               f"{r['plain_ms']:10.4f} {r['library_ms']:11.4f} "
               f"{r['bound_ms']:9.4f} {r['bound_by']}")
+    print("(x rows: the x scale's P5 stage at x@1024 bs8, C=1280, head "
+          "width 160)")
     print("device ms per stage, C = " + " / ".join(map(str, STAGE_WIDTHS)))
     for name, r in rows.items():
         print(f"{name:<18} " + " / ".join(f"{r['by_c'][C]:.4f}"
-                                          for C in STAGE_WIDTHS))
-
+                                          for C in r["by_c"]))
+    print(f"(K2 by block class C = 64 / 128 / 256, 6 / 18 / 18 blocks.) "
+          f"The two-launch design's own floor, with z written and read back "
+          f"and x read twice: {floor_2l:.4f} ms per forward")
     # end to end: one request of BATCH pairs already on the card
     rgb, ir = batches[0]
     ms_infer = cuda_ms(lambda: det.infer(rgb, ir), iters=10, warmup=2)
@@ -357,7 +562,7 @@ def phase_timing(torch, F, cs, device, det, batches, stages, card):
     torch.backends.cudnn.benchmark = True
     ms_fwd_tuned_dev = graph_ms(lambda: det.raw(rgb, ir), replays=10)
     torch.backends.cudnn.benchmark = False
-    stack_ms = sum(r["ms"] for r in rows.values())
+    stack_ms = sum(r["ms"] for k, r in rows.items() if k.startswith("cft_"))
     print(f"main path (bf16, bs{BATCH}, {IMG} px) on {card}: "
           f"{ms_infer:.3f} ms/batch = {BATCH * 1e3 / ms_infer:.1f} pairs/s")
     print(f"  forward {ms_fwd:.3f} ms launched from the host, {ms_fwd_dev:.3f}"
@@ -425,6 +630,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from multispectral_object_detection_tpu_torch import kernels
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     device = torch.device("cuda:0")
@@ -442,17 +648,19 @@ def main() -> int:
                                          not in ln)]
         print(f"  {name}: {'; '.join(regs)}")
 
-    worst = phase_checks(torch, cs, device)
+    worst = phase_checks(torch, cs, k2, device)
     print("phase 2: every kernel matches its plain version")
     det, batches, stages, launches = phase_main_path(torch, device)
     print("phase 3: main path served through the kernels")
-    rows = phase_timing(torch, F, cs, device, det, batches, stages, card)
+    legs, launches["c3_bottleneck"] = phase_bench(torch, device)
+    print(f"phase 4: {len(legs)} bench legs ran through the kernels")
+    rows = phase_timing(torch, F, cs, k2, device, det, batches, stages, card)
 
     out = []
-    for name, source in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": CFT_SOURCE, "launches": launches[name],
+                    "replaces": replaces, "launches": launches[name],
                     "max_abs_err": worst[name], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

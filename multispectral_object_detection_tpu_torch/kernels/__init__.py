@@ -10,6 +10,8 @@ source, all at once.
 
 Pointers and the CUDA stream cross as ``ctypes.c_void_p``; every entry point
 returns ``cudaGetLastError()`` of its launch as an int, 0 on success.
+``launch`` calls one on the current stream and raises on a non-zero code;
+the wrappers in ``ops/`` check their arguments with the helpers below first.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -32,7 +36,11 @@ SIGNATURES = {
     "layernorm": {"cft_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P]},
     "gemm": {"cft_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "attention": {"cft_attention": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "c3_bottleneck": {"c3_conv": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _P]},
 }
+# dtype codes of the kernels' entry points (csrc/cft_common.cuh)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -102,3 +110,42 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain path), False for CUDA ones (kernel)."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
+                     "the kernels take tensors on one CUDA device, their "
+                     "plain versions CPU tensors")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_args(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+        require(t.data_ptr() % 16 == 0,
+                f"{name}: {arg} must be 16-byte aligned")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer; None for a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch(lib_name: str, fn: str, device, *args) -> None:
+    """Call entry point ``fn`` of library ``lib_name`` on the current stream
+    of ``device``; raise if the launch failed."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(lib_name), fn)(*args, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {err}")

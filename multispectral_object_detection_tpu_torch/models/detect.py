@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .quantize import conv_weight
+
 
 def detect_prior_bias(nc: int, na: int, stride: float,
                       img_size: float = 640.0) -> np.ndarray:
@@ -51,7 +53,8 @@ class Detect(nn.Module):
     def forward(self, xs):
         outs = []
         for conv, x in zip(self.m, xs):
-            y = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+            y = F.conv2d(x, conv_weight(conv, x.dtype),
+                         conv.bias.to(x.dtype))
             b, _, ny, nx = y.shape
             # channel a*no + o -> (a, o), as the JAX head's reshape
             outs.append(y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na,

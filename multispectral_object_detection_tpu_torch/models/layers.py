@@ -8,8 +8,10 @@ state dicts load as they are.
 Numerics as in the JAX modules: convolutions run in the input's dtype
 (parameters are cast at use, a no-op once the model is cast), BatchNorm in
 fp32 with eps 1e-3, SiLU in the compute dtype. After ``fuse_conv_bn``
-(models/model.py) a ConvBnAct holds a conv with bias and no ``bn``.
-Inference only: BatchNorm always uses its running statistics.
+(models/model.py) a ConvBnAct holds a conv with bias and no ``bn``; after
+``quantize_int8`` (models/quantize.py) its weight is int8 with a scale, read
+through ``conv_weight``. Inference only: BatchNorm always uses its running
+statistics.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.c3_bottleneck import c3_bottleneck
 from .parser import autopad
+from .quantize import conv_weight
 
 
 class ConvBnAct(nn.Module):
@@ -36,7 +40,7 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x):
         c = self.conv
-        y = F.conv2d(x, c.weight.to(x.dtype),
+        y = F.conv2d(x, conv_weight(c, x.dtype),
                      None if c.bias is None else c.bias.to(x.dtype),
                      c.stride, c.padding, c.dilation, c.groups)
         if self.bn is not None:
@@ -62,17 +66,65 @@ class Focus(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 with an optional residual."""
+    """1x1 -> 3x3 with an optional residual.
+
+    With ``use_c3_kernel``, a BN-folded bottleneck with a shortcut, g == 1,
+    c1 == c2 == c_ and c_ % 64 == 0 (the JAX package's condition for its
+    Pallas kernel, models/layers.py) runs as the fused C3 bottleneck kernel
+    (ops/c3_bottleneck.py); any other block takes the convolutions. The
+    parameters stay ``cv1.conv.*``/``cv2.conv.*``. ``pack`` stores the
+    kernel's weight layout once; unpacked (or int8) weights are laid out at
+    every call.
+    """
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5):
+                 e: float = 0.5, use_c3_kernel: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = ConvBnAct(c1, c_, 1, 1)
         self.cv2 = ConvBnAct(c_, c2, 3, 1, g=g)
         self.add = shortcut and c1 == c2
+        self.fits_kernel = (use_c3_kernel and shortcut and g == 1
+                             and c1 == c2 == c_ and c_ % 64 == 0)
+        # the kernel's implementation; a caller may swap in its plain version
+        self.c3_fn = c3_bottleneck
+        self.register_buffer("w1", None)  # set by `pack`
+        self.register_buffer("w2", None)
+
+    @property
+    def takes_kernel(self) -> bool:
+        """True when this block runs as the fused kernel."""
+        return (self.fits_kernel and self.cv1.bn is None
+                and self.cv2.bn is None)
+
+    def kernel_weights(self, dtype) -> tuple:
+        """w1 (C, C) as (in, out) and w2 (9, C, C) as (tap, in, out)."""
+        if self.w1 is not None:
+            return self.w1.to(dtype), self.w2.to(dtype)
+        w1 = conv_weight(self.cv1.conv, dtype)  # (out, in, 1, 1)
+        w2 = conv_weight(self.cv2.conv, dtype)  # (out, in, 3, 3)
+        c = w1.shape[0]
+        return (w1.reshape(c, c).t().contiguous(),
+                w2.permute(2, 3, 1, 0).reshape(9, c, c).contiguous())
+
+    @torch.no_grad()
+    def pack(self) -> None:
+        """Store the kernel's weight layout as buffers (a fused block that
+        takes the kernel; their dtype follows the conv weights')."""
+        if self.takes_kernel:
+            w1, w2 = self.kernel_weights(self.cv1.conv.weight.dtype)
+            self.register_buffer("w1", w1)
+            self.register_buffer("w2", w2)
+
+    def unpack(self) -> None:
+        self.w1 = self.w2 = None
 
     def forward(self, x):
+        if self.takes_kernel:
+            w1, w2 = self.kernel_weights(x.dtype)
+            y = self.c3_fn(x.permute(0, 2, 3, 1), w1, self.cv1.conv.bias, w2,
+                           self.cv2.conv.bias)
+            return y.permute(0, 3, 1, 2)
         y = self.cv2(self.cv1(x))
         return x + y if self.add else y
 
@@ -81,13 +133,14 @@ class C3(nn.Module):
     """CSP bottleneck with 3 convs: the main backbone/neck block."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
-                 g: int = 1, e: float = 0.5):
+                 g: int = 1, e: float = 0.5, use_c3_kernel: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = ConvBnAct(c1, c_, 1, 1)
         self.cv2 = ConvBnAct(c1, c_, 1, 1)
         self.cv3 = ConvBnAct(2 * c_, c2, 1)
-        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0,
+                                            use_c3_kernel=use_c3_kernel)
                                  for _ in range(n)))
 
     def forward(self, x):

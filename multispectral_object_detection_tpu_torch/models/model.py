@@ -23,7 +23,7 @@ from .fusion import CrossModalFusion
 from .parser import ModelSpec, Node, parse_model_config
 
 
-def _build_module(node: Node) -> nn.Module:
+def _build_module(node: Node, use_c3_kernel: bool = False) -> nn.Module:
     k, a = node.kind, node.args
     if k == "Conv":
         return L.ConvBnAct(a[0], a[1], k=a[2] if len(a) > 2 else 1,
@@ -36,7 +36,8 @@ def _build_module(node: Node) -> nn.Module:
     if k == "Bottleneck":
         return L.Bottleneck(a[0], a[1], shortcut=a[2] if len(a) > 2 else True)
     if k == "C3":
-        return L.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True)
+        return L.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True,
+                    use_c3_kernel=use_c3_kernel)
     if k == "SPP":
         return L.SPP(a[0], a[1], k=tuple(a[2]) if len(a) > 2 else (5, 9, 13))
     if k == "Concat":
@@ -59,10 +60,13 @@ class DetectionModel(nn.Module):
 
     ``forward`` casts the inputs to ``dtype`` and returns the tuple of raw
     per-scale Detect outputs ``((B, ny, nx, na, 5+nc), ...)``; ``decode``
-    gives flat detections.
+    gives flat detections. ``use_c3_kernel`` routes the C3 bottlenecks that
+    fit it through the fused C3 kernel once the model is fused (the JAX
+    package's ``use_pallas_c3``; off by default, as there).
     """
 
-    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32):
+    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32,
+                 use_c3_kernel: bool = False):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -72,10 +76,10 @@ class DetectionModel(nn.Module):
                 mods.append(Detect(node.args[0], spec.anchors, spec.strides,
                                    node.args[2]))
             elif node.repeats > 1:
-                mods.append(nn.Sequential(*(_build_module(node)
+                mods.append(nn.Sequential(*(_build_module(node, use_c3_kernel)
                                             for _ in range(node.repeats))))
             else:
-                mods.append(_build_module(node))
+                mods.append(_build_module(node, use_c3_kernel))
         self.model = nn.ModuleList(mods)
 
     def forward(self, x, x2=None):
@@ -104,23 +108,24 @@ class DetectionModel(nn.Module):
 
     def fuse(self) -> "DetectionModel":
         """Inference form: fold every BatchNorm into its conv and pack the
-        CFT layer weights into the kernels' stacked layout."""
+        CFT layer weights and the fused C3 bottlenecks' weights into their
+        kernels' layouts."""
         fuse_conv_bn(self)
         for m in self.modules():
-            if isinstance(m, CrossModalFusion):
+            if isinstance(m, (CrossModalFusion, L.Bottleneck)):
                 m.pack()
         return self
 
 
 def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
-                dtype: torch.dtype = torch.float32,
-                device=None) -> DetectionModel:
+                dtype: torch.dtype = torch.float32, device=None,
+                use_c3_kernel: bool = False) -> DetectionModel:
     """YAML path / dict / ModelSpec -> DetectionModel. ``device="meta"``
     builds the structure without storage (parameter counts)."""
     spec = cfg if isinstance(cfg, ModelSpec) else parse_model_config(
         cfg, ch_in=ch_in, nc=nc, anchors=anchors)
     with torch.device(device or "cpu"):
-        model = DetectionModel(spec, dtype=dtype)
+        model = DetectionModel(spec, dtype=dtype, use_c3_kernel=use_c3_kernel)
     return model.eval()
 
 

@@ -23,16 +23,16 @@ the compute dtype, exact GELU, fp32 residual stream.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels import DTYPE_CODE, check_args, launch, on_cpu, ptr, require
+
 LAUNCHES = {"cft_layernorm": 0, "cft_gemm_bias": 0, "cft_gemm_gelu": 0,
             "cft_gemm_residual": 0, "cft_attention": 0}
 EPILOGUES = ("bias", "gelu", "residual")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -40,44 +40,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (plain path), False for CUDA ones (kernel)."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
-                     "the kernels take tensors on one CUDA device, their "
-                     "plain versions CPU tensors")
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_args(name: str, **tensors: torch.Tensor) -> None:
-    for arg, t in tensors.items():
-        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
-        _require(t.data_ptr() % 16 == 0,
-                 f"{name}: {arg} must be 16-byte aligned")
-
-
 def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
-    from .. import kernels
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(kernels.library(lib_name), fn)(
-            *args, ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {err}")
+    launch(lib_name, fn, device, *args)
     LAUNCHES[counter] += 1
-
-
-def _p(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 # --------------------------------------------------------------- LayerNorm
@@ -90,20 +55,21 @@ def layer_norm_plain(x, scale, bias, dtype, eps: float = 1e-5):
 
 def layer_norm(x, scale, bias, dtype, eps: float = 1e-5):
     """Kernel ``cft_layernorm`` (kernels/csrc/layernorm.cu)."""
-    if _on_cpu(x, scale, bias):
+    if on_cpu(x, scale, bias):
         return layer_norm_plain(x, scale, bias, dtype, eps)
     M, C = x.shape
-    _require(x.dtype == scale.dtype == bias.dtype == torch.float32,
-             "layer_norm: x, scale and bias must be float32")
-    _require(dtype in _DTYPE_CODE, f"layer_norm: unsupported dtype {dtype}")
-    _require(C % 4 == 0 and C <= 1024, f"layer_norm: C={C} must be a "
-             "multiple of 4 and at most 1024")
-    _require(scale.shape == bias.shape == (C,), "layer_norm: scale and bias "
-             "must be (C,)")
+    require(x.dtype == scale.dtype == bias.dtype == torch.float32,
+            "layer_norm: x, scale and bias must be float32")
+    require(dtype in DTYPE_CODE, f"layer_norm: unsupported dtype {dtype}")
+    require(C % 4 == 0 and C <= 2048, f"layer_norm: C={C} must be a "
+            "multiple of 4 and at most 2048")
+    require(scale.shape == bias.shape == (C,), "layer_norm: scale and bias "
+            "must be (C,)")
     out = torch.empty((M, C), dtype=dtype, device=x.device)
-    _check_args("layer_norm", x=x, scale=scale, bias=bias, out=out)
+    check_args("layer_norm", x=x, scale=scale, bias=bias, out=out)
     _launch("layernorm", "cft_layernorm", "cft_layernorm", x.device,
-            _p(x), _p(scale), _p(bias), _p(out), M, C, eps, _DTYPE_CODE[dtype])
+            ptr(x), ptr(scale), ptr(bias), ptr(out), M, C, eps,
+            DTYPE_CODE[dtype])
     return out
 
 
@@ -124,32 +90,32 @@ def linear_plain(a, w, bias, epilogue: str, out=None):
 
 def linear(a, w, bias, epilogue: str, out=None):
     """Kernel ``cft_gemm`` (kernels/csrc/gemm.cu), one launch."""
-    _require(epilogue in EPILOGUES, f"linear: unknown epilogue {epilogue!r}")
-    _require((out is not None) == (epilogue == "residual"),
-             "linear: `out` is the residual stream, given only for the "
-             "'residual' epilogue")
+    require(epilogue in EPILOGUES, f"linear: unknown epilogue {epilogue!r}")
+    require((out is not None) == (epilogue == "residual"),
+            "linear: `out` is the residual stream, given only for the "
+            "'residual' epilogue")
     tensors = (a, w, bias) + ((out,) if out is not None else ())
-    if _on_cpu(*tensors):
+    if on_cpu(*tensors):
         return linear_plain(a, w, bias, epilogue, out)
     M, K = a.shape
     N = w.shape[1]
-    _require(a.dtype == w.dtype == bias.dtype and a.dtype in _DTYPE_CODE,
-             "linear: a, w and bias must share one dtype, float32 or bfloat16")
-    _require(w.shape == (K, N) and bias.shape == (N,),
-             f"linear: w {tuple(w.shape)} / bias {tuple(bias.shape)} do not "
-             f"fit a {tuple(a.shape)}")
-    _require(M % 64 == 0 and N % 64 == 0 and K % 32 == 0,
-             f"linear: needs M % 64 == N % 64 == K % 32 == 0, got "
-             f"M={M} N={N} K={K}")
+    require(a.dtype == w.dtype == bias.dtype and a.dtype in DTYPE_CODE,
+            "linear: a, w and bias must share one dtype, float32 or bfloat16")
+    require(w.shape == (K, N) and bias.shape == (N,),
+            f"linear: w {tuple(w.shape)} / bias {tuple(bias.shape)} do not "
+            f"fit a {tuple(a.shape)}")
+    require(M % 64 == 0 and N % 64 == 0 and K % 32 == 0,
+            f"linear: needs M % 64 == N % 64 == K % 32 == 0, got "
+            f"M={M} N={N} K={K}")
     if out is None:
         out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     else:
-        _require(out.dtype == torch.float32 and out.shape == (M, N),
-                 "linear: the residual stream must be float32 (M, N)")
-    _check_args("linear", a=a, w=w, bias=bias, out=out)
+        require(out.dtype == torch.float32 and out.shape == (M, N),
+                "linear: the residual stream must be float32 (M, N)")
+    check_args("linear", a=a, w=w, bias=bias, out=out)
     _launch("gemm", "cft_gemm", f"cft_gemm_{epilogue}", a.device,
-            _p(a), _p(w), _p(bias), _p(out), M, N, K,
-            EPILOGUES.index(epilogue), _DTYPE_CODE[a.dtype])
+            ptr(a), ptr(w), ptr(bias), ptr(out), M, N, K,
+            EPILOGUES.index(epilogue), DTYPE_CODE[a.dtype])
     return out
 
 
@@ -169,24 +135,25 @@ def attention_plain(qkv, batch: int, num_heads: int):
 
 def attention(qkv, batch: int, num_heads: int):
     """Kernel ``cft_attention`` (kernels/csrc/attention.cu)."""
-    if _on_cpu(qkv):
+    if on_cpu(qkv):
         return attention_plain(qkv, batch, num_heads)
     M, C3 = qkv.shape
     C = C3 // 3
     n = M // batch
-    _require(qkv.dtype in _DTYPE_CODE,
-             "attention: qkv must be float32 or bfloat16")
-    _require(C3 % 3 == 0 and M % batch == 0 and C % num_heads == 0,
-             f"attention: qkv {tuple(qkv.shape)} does not split into "
-             f"{batch} images and {num_heads} heads")
+    require(qkv.dtype in DTYPE_CODE,
+            "attention: qkv must be float32 or bfloat16")
+    require(C3 % 3 == 0 and M % batch == 0 and C % num_heads == 0,
+            f"attention: qkv {tuple(qkv.shape)} does not split into "
+            f"{batch} images and {num_heads} heads")
     d = C // num_heads
-    _require(d % 8 == 0 and d <= 128, f"attention: head width {d} must be "
-             "a multiple of 8 and at most 128")
-    _require(n <= 128, f"attention: {n} tokens per image, at most 128")
+    require(d % 8 == 0 and d <= 160, f"attention: head width {d} must be "
+            "a multiple of 8 and at most 160")
+    require(n <= 128, f"attention: {n} tokens per image, at most 128")
     out = torch.empty((M, C), dtype=qkv.dtype, device=qkv.device)
-    _check_args("attention", qkv=qkv, out=out)
+    check_args("attention", qkv=qkv, out=out)
     _launch("attention", "cft_attention", "cft_attention", qkv.device,
-            _p(qkv), _p(out), batch, n, C, num_heads, _DTYPE_CODE[qkv.dtype])
+            ptr(qkv), ptr(out), batch, n, C, num_heads,
+            DTYPE_CODE[qkv.dtype])
     return out
 
 
@@ -202,8 +169,8 @@ def _run_stack(ops, x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2,
               "w2": (w2, (L, 4 * C, C)), "b2": (b2, (L, C)),
               "ln1": (ln1, (L, 2, C)), "ln2": (ln2, (L, 2, C))}
     for name, (t, want) in shapes.items():
-        _require(tuple(t.shape) == want, f"fused_cft_stack: {name} is "
-                 f"{tuple(t.shape)}, expected {want}")
+        require(tuple(t.shape) == want, f"fused_cft_stack: {name} is "
+                f"{tuple(t.shape)}, expected {want}")
     dt = x.dtype
     xs = torch.empty((B * N, C), dtype=torch.float32, device=x.device)
     xs.copy_(x.reshape(B * N, C))  # fp32 residual stream, updated in place

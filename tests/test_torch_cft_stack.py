@@ -119,6 +119,28 @@ def test_attention_plain_matches_jax(heads, d):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("C", [1280, 2048])
+def test_layer_norm_plain_matches_jax_at_x_scale_widths(C):
+    rng = np.random.default_rng(C)
+    x = rng.standard_normal((64, C)).astype(np.float32) * 3 + 1
+    s = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    got = cs.layer_norm_plain(torch.from_numpy(x), torch.from_numpy(s),
+                              torch.from_numpy(b), torch.float32)
+    want = pf._ln(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_stack_plain_matches_jax_reference_at_head_width_160():
+    """The x scale's P5 stage: C = 1280, 8 heads of width 160."""
+    x, ws = _inputs(1, 1280, 1, seed=9)
+    t, j = _cast(x, ws, torch.float32, jnp.float32)
+    got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
+    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
 def _wrapper_cases():
     rng = np.random.default_rng(6)
 
@@ -188,3 +210,23 @@ def test_cuda_stack_matches_plain(cuda_device, dtype, tol):
     want = cs.fused_cft_stack_plain(*t).float()
     assert cs.LAUNCHES["cft_attention"] == 2
     assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 8e-3)])
+def test_cuda_x_scale_layer_norm_and_attention_match_plain(cuda_device,
+                                                           dtype, tol):
+    """C = 1280 (float4 per lane beyond the old 8) and head width 160
+    (4 query rows per warp, to fit shared memory)."""
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(1024, 1280, generator=g).to(cuda_device)
+    w = (1 + 0.1 * torch.randn(1280, generator=g)).to(cuda_device)
+    b = (0.1 * torch.randn(1280, generator=g)).to(cuda_device)
+    qkv = torch.randn(1024, 3 * 1280, generator=g).to(cuda_device, dtype)
+    for got, want in ((cs.layer_norm(x, w, b, dtype),
+                       cs.layer_norm_plain(x, w, b, dtype)),
+                      (cs.attention(qkv, 8, 8), cs.attention_plain(qkv, 8, 8))):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        assert (got - want).abs().max() <= tol * want.abs().max()
