@@ -9,11 +9,13 @@ failure raises and the script exits non-zero:
    ``multispectral_object_detection_tpu_torch/kernels/csrc`` (one nvcc per
    source, all at once).
 2. every kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, TF32 off: LayerNorm at M=2048, the four GEMMs of a layer and the
-   attention at the CFT stages' widths of the l and x scales (C up to 1280,
-   head width up to 160), the whole 8-layer stack, and the fused C3
-   bottleneck (K2) at the shapes of the l@640 and x@1024 bench legs and at
-   an odd shape.
+   fp32, TF32 off: LayerNorm at M=2048, the four GEMMs of a layer at the CFT
+   stages' widths of the l and x scales (C up to 1280) at M=2048 and at
+   M=1024 with C=320 (N=960, not a multiple of 128) and C=192 (the m
+   scale), the attention at head widths 8 to 160 (24 and 40 included) with
+   128 tokens and with 100 (the masked edge), the whole 8-layer stack, and
+   the fused C3 bottleneck (K2) at the shapes of the l@640 and x@1024 bench
+   legs and at an odd shape.
 3. the main path: ``Detector`` on the l-scale two-stream transformerx3
    config (nc=1, random weights from a seed, BN folded, bf16) serves three
    requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
@@ -29,9 +31,9 @@ failure raises and the script exits non-zero:
    version.
 5. timing with CUDA events: each kernel over one forward's launches at the
    main path's shapes (K2 at the ``--c3-kernel`` leg's), beside its bound,
-   its plain version and one PyTorch library call for the same function;
-   LayerNorm and attention at the x scale's P5 stage; the main path's ms
-   per batch.
+   its achieved TFLOP/s and share of the bound, its plain version and one
+   PyTorch library call for the same function; LayerNorm and attention at
+   the x scale's P5 stage; the main path's ms per batch.
 6. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -51,6 +53,11 @@ B, N_TOK, L, HEADS = 16, 128, 8, 8      # CFT stage on the main path
 M = B * N_TOK
 STAGE_WIDTHS = (256, 512, 1024)           # P3, P4, P5
 X_P5 = 1280                               # the x scale's P5 stage
+# GEMM checks at M = 1024 (x@1024 bs8): C = 320 (QKV N = 960, not a multiple
+# of 128) and C = 192 (the m scale's P3 stage)
+GEMM_M1024_WIDTHS = (320, 192)
+ATTN_WIDTHS = (8, 24, 32, 40, 64, 128, 136, X_P5 // 8)  # head widths checked
+ATTN_N_EDGE = 100                          # tokens per image, masked edge
 IMG, BATCH, REQUESTS = 640, 16, 3
 # K2 blocks of one l@640 bs16 forward with --c3-kernel: (B, H, W, C), count
 K2_BLOCKS = (((16, 160, 160, 64), 6), ((16, 80, 80, 128), 18),
@@ -182,26 +189,31 @@ def phase_checks(torch, cs, k2, device):
             w, b = 1 + rn(C, scale=0.1), rn(C, scale=0.1)
             report("layernorm", dt, (M, C), cs.layer_norm(x, w, b, dt),
                    cs.layer_norm_plain(x, w, b, dt), tol, "cft_layernorm")
+        gemm_shapes = [(M, C) for C in STAGE_WIDTHS + (X_P5,)] + [
+            (1024, C) for C in GEMM_M1024_WIDTHS]
+        for Mg, C in gemm_shapes:
             for K, Nout, epi in ((C, 3 * C, "bias"), (C, C, "residual"),
                                  (C, 4 * C, "gelu"), (4 * C, C, "residual")):
-                a = rn(M, K, dt=dt)
+                a = rn(Mg, K, dt=dt)
                 ww = rn(K, Nout, scale=K ** -0.5, dt=dt)
                 bb = rn(Nout, scale=0.1, dt=dt)
                 if epi == "residual":
-                    s0 = rn(M, Nout)
+                    s0 = rn(Mg, Nout)
                     got = cs.linear(a, ww, bb, epi, out=s0.clone())
                     ref = cs.linear_plain(a, ww, bb, epi, out=s0.clone())
                 else:
                     got = cs.linear(a, ww, bb, epi)
                     ref = cs.linear_plain(a, ww, bb, epi)
-                report(f"gemm_{epi}", dt, (M, K, Nout), got, ref, tol,
-                       f"cft_gemm_{epi}")
-        for D in (8, 32, 64, 128, 136, X_P5 // HEADS):
-            qkv = rn(M, 3 * HEADS * D, dt=dt)
-            report("attention", dt, (B, N_TOK, HEADS, D),
-                   cs.attention(qkv, B, HEADS), cs.attention_plain(qkv, B, HEADS),
-                   tol, "cft_attention"
-                   if D * HEADS in STAGE_WIDTHS + (X_P5,) else None)
+                report(f"gemm_{epi}", dt, (Mg, K, Nout), got, ref, tol,
+                       f"cft_gemm_{epi}" if Mg == M else None)
+        for D in ATTN_WIDTHS:
+            for n_tok in (N_TOK, ATTN_N_EDGE):
+                qkv = rn(B * n_tok, 3 * HEADS * D, dt=dt)
+                main = n_tok == N_TOK and D * HEADS in STAGE_WIDTHS + (X_P5,)
+                report("attention", dt, (B, n_tok, HEADS, D),
+                       cs.attention(qkv, B, HEADS),
+                       cs.attention_plain(qkv, B, HEADS), tol,
+                       "cft_attention" if main else None)
         for C in (64,) + STAGE_WIDTHS + (X_P5,):
             x, w = stack_inputs(C, dt, gen, device)
             report("fused_cft_stack", dt, (B, N_TOK, C, L),
@@ -406,7 +418,7 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
     def new_row():
         return {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                "bound_ms": 0.0, "by_c": {}}
+                "bound_ms": 0.0, "ops": 0.0, "by_c": {}}
 
     rows = {k: new_row() for k in KERNELS}
     # LayerNorm and attention at the x scale's P5 stage (x@1024 bs8)
@@ -424,6 +436,7 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
         r["library_ms"] += graph_ms(fn_lib)
         for by, ops in costs:
             tb, to = by / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[kind] * 1e3
+            r["ops"] += ops
             r["bytes_ms"] += tb
             r["ops_ms"] += to
             r["bound_ms"] += max(tb, to)
@@ -528,13 +541,14 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
     print("per forward (3 stages x 8 layers; K2: 42 blocks), device ms from "
           "CUDA-graph replay; eager = launched from the host one by one")
     print("kernel              ms/fwd  eager_ms   plain_ms  library_ms  "
-          "bound_ms")
+          "bound_ms bound_by   TFLOP/s  of bound")
     for name, r in list(rows.items()) + [(f"x {k}", r) for k, r in
                                          xrows.items()]:
         r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
         print(f"{name:<18} {r['ms']:8.4f} {r['eager_ms']:9.4f} "
               f"{r['plain_ms']:10.4f} {r['library_ms']:11.4f} "
-              f"{r['bound_ms']:9.4f} {r['bound_by']}")
+              f"{r['bound_ms']:9.4f} {r['bound_by']:<10} "
+              f"{r['ops'] / r['ms'] / 1e9:8.1f} {r['bound_ms'] / r['ms']:8.1%}")
     print("(x rows: the x scale's P5 stage at x@1024 bs8, C=1280, head "
           "width 160)")
     print("device ms per stage, C = " + " / ".join(map(str, STAGE_WIDTHS)))
@@ -590,8 +604,9 @@ def profile_forward(torch, fn, runs: int = 2) -> None:
             fn()
         torch.cuda.synchronize()
     kinds = {  # first match wins
-        "CFT kernels": ("layernorm_kernel", "gemm_bf16_kernel",
-                        "gemm_f32_kernel", "attention_kernel"),
+        "CFT kernels": ("layernorm_kernel", "gemm_wgmma_kernel",
+                        "gemm_f32_kernel", "attention_mma_kernel",
+                        "attention_f32_kernel"),
         "convolution": ("fprop", "conv", "xmma", "implicit"),
         "silu": ("silu",),
         "other elementwise (bias add, residual add)": ("elementwise",),

@@ -29,6 +29,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: gemm.cu encodes its TMA descriptors with libcuda
+NVCC_LIBS = ("-lcuda",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> {entry point: argtypes}
@@ -59,7 +61,7 @@ def _nvcc() -> str:
 
 def target(name: str) -> Path:
     """Path of the shared library for source ``csrc/<name>.cu``."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,7 +83,7 @@ def build(names=tuple(SIGNATURES)) -> dict[str, str]:
     for n in todo:
         tmp = target(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
+               str(CSRC / f"{n}.cu"), *NVCC_LIBS]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -130,10 +132,12 @@ def require(cond: bool, msg: str) -> None:
 
 
 def check_args(name: str, **tensors: torch.Tensor) -> None:
+    # runs before every launch: messages are formatted only on failure
     for arg, t in tensors.items():
-        require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
-        require(t.data_ptr() % 16 == 0,
-                f"{name}: {arg} must be 16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def ptr(t) -> ctypes.c_void_p:

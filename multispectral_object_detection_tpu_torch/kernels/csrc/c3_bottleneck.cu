@@ -50,25 +50,6 @@ __device__ __forceinline__ float bias_at(const void* b, int bias_bf16, int n) {
                    : static_cast<const float*>(b)[n];
 }
 
-// 16 bytes from gmem to smem, or 16 zero bytes when !ok (src-size 0)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  cp_async16_zfill(smem, gmem, true);
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Row of A for pixel p and tap `tap` (0..8; dy = tap/3 - 1, dx = tap%3 - 1):
 // the source pixel's offset in pixels, or -1 when the tap reads padding.
 // h < 0 marks a row past P.
@@ -96,37 +77,6 @@ constexpr int kPad = 8;     // bf16 elements of row padding: rows 16 bytes past
 template <int BM, int BN>
 constexpr int bf16_smem_bytes() {
   return kStages * (BM * (kBK + kPad) + kBK * (BN + kPad)) * 2;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// A fragment of mma.m16n8k16 (16 rows x 16 k) from row-major smem
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// B fragments of two n8 tiles (16 k x 16 n) from row-major [k][n] smem
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // BM pixels x BN output channels; a WARPS_M x WARPS_N grid of warps, each

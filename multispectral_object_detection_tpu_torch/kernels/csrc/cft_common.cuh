@@ -1,6 +1,6 @@
-// Shared helpers for the CFT transformer-stack kernels (layernorm.cu, gemm.cu,
-// attention.cu). Each kernel file exposes a plain C entry point that launches
-// on the caller's stream and returns cudaGetLastError() as an int.
+// Shared helpers of the port's kernels (layernorm.cu, gemm.cu, attention.cu,
+// c3_bottleneck.cu). Each kernel file exposes a plain C entry point that
+// launches on the caller's stream and returns cudaGetLastError() as an int.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +34,68 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ------------------------------------ tensor-core helpers (attention, K2)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from gmem to smem, or 16 zero bytes when !ok (src-size 0)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  cp_async16_zfill(smem, gmem, true);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A fragment of mma.m16n8k16 (16 rows x 16 k) from row-major smem, or B
+// fragments of two n8 tiles from smem holding B transposed ([n][k])
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// B fragments of two n8 tiles (16 k x 16 n) from row-major [k][n] smem
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// B fragment of one n8 tile (16 k x 8 n) from row-major [k][n] smem; the
+// addresses of lanes 0-15 are used
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b on the tensor cores, bf16 in, fp32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace cft

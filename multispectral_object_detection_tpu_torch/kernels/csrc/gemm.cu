@@ -11,33 +11,52 @@
 //
 // Bound: operations at the main path's shapes (M = 2048 token rows, K and N
 // from 256 to 4096: about 2*K*N*M / (2*(K*N + M*K + M*N)) >= 200 operations
-// per byte in bf16). Design, kept simple for a first version:
-//   - bf16: tensor cores through WMMA 16x16x16 tiles with fp32 accumulation;
-//     a 128x128 block tile of 4 warps of 64x64 (64x64 of 4 warps of 32x32
-//     when the large tile would leave most SMs idle); a warp tile's
-//     fragment loads from shared memory, not the MMAs, set its pace,
-//     BK = 32, a three-stage cp.async pipeline from device memory
-//     into padded dynamic shared memory (64 KB at 128x128, so the launcher
-//     raises the 48 KB default). The epilogue goes through a per-warp 16x16
-//     fp32 scratch in shared memory; each lane then finishes 8 consecutive
-//     columns with 16-byte loads and stores.
+// per byte in bf16), except proj and fc2 at C = 256, whose fp32 residual
+// read and write make them bytes-bound. Design:
+//   - bf16: Hopper's warpgroup MMA (`wgmma.mma_async` m64nNk16, bf16 in,
+//     fp32 accumulator in registers) on tiles that the Tensor Memory
+//     Accelerator (TMA) loads. One producer warp starts the TMA copies of an
+//     A tile (BM x 64) and a W tile (64 x BN) into a ring of stages, each
+//     tracked by a "full" and an "empty" mbarrier; BM / 64 consumer
+//     warpgroups each run 64 x BN of the tile. Both tiles use the 128-byte
+//     swizzle, set in the TMA descriptors and in the wgmma descriptors: A is
+//     K-major, W is N-major (its rows are k), which wgmma takes for 16-bit
+//     types through the transpose bit of B, so no relayout of W exists.
+//     The block tile is 128x128 (3 stages, two blocks an SM), 128x64 or
+//     64x64 (4 stages), the largest that gives enough blocks to fill the
+//     card (proj and fc2 at C = 256 have 32 tiles of 128x128 and 128 of
+//     64x64); the thresholds come from a sweep on the card. At 128x128 a
+//     block loads 32 KB from L2 per 2.1 MFLOP. Two ways to cut that traffic
+//     were measured slower at these shapes: 128x256 tiles (one block an SM,
+//     too few blocks), and clusters of two blocks that multicast the W tile
+//     (much slower as written). TMA fills zeros
+//     outside the matrices (N = 960 and 320 at the x scale are not multiples
+//     of 128, and any K tail), and the epilogue masks its stores. No split-K:
+//     the residual epilogue adds into the stream in place, in one order.
+//     The epilogue runs on the accumulator registers (two columns a store):
+//     the bias widened from bf16, exact erff GELU, the residual as
+//     (x + acc) + b in fp32.
 //   - fp32: true fp32 FMA on the CUDA cores (no TF32), 64x64 block tile with
 //     4x4 outputs per thread, because the reference it is held against is a
-//     full-precision fp32 product.
+//     full-precision fp32 product. Used only by the checks.
 // Rounding follows `_kernel`: the accumulator stays fp32, the bias is read in
 // the compute dtype and widened, and the result is rounded once.
-#include <mma.h>
+//
+// The TMA descriptors are built on the host per call with libcuda's
+// cuTensorMapEncodeTiled, so this library links libcuda.
+#include <cuda.h>
 
 #include "cft_common.cuh"
 
-using namespace nvcuda;
 using namespace cft;
 
 namespace {
 
 enum Epilogue { kBias = 0, kGelu = 1, kResidual = 2 };
 
-constexpr int kThreads = 256;
+__device__ __forceinline__ float gelu(float t) {
+  return t * 0.5f * (1.0f + erff(t * 0.70710678118654752440f));
+}
 
 template <typename T, int EPI>
 __device__ __forceinline__ void epilogue_store(void* out, const T* bias, int N,
@@ -49,176 +68,285 @@ __device__ __forceinline__ void epilogue_store(void* out, const T* bias, int N,
     o[idx] = (o[idx] + acc) + bv;  // x = x + proj + b, as in `_kernel`
   } else {
     float t = acc + bv;
-    if constexpr (EPI == kGelu)
-      t = t * 0.5f * (1.0f + erff(t * 0.70710678118654752440f));
+    if constexpr (EPI == kGelu) t = gelu(t);
     static_cast<T*>(out)[idx] = from_float<T>(t);
   }
 }
 
-// 8 consecutive columns n..n+7 of row m (n % 8 == 0): 16-byte accesses
-template <int EPI>
-__device__ __forceinline__ void epilogue_store8(void* out, const bf16* bias,
-                                                int N, int m, int n,
-                                                const float* acc) {
-  const uint4 braw = *reinterpret_cast<const uint4*>(bias + n);
-  const bf16* bv = reinterpret_cast<const bf16*>(&braw);
-  const size_t idx = (size_t)m * N + n;
-  if constexpr (EPI == kResidual) {
-    float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + idx);
-    float x[8];
-    *reinterpret_cast<float4*>(x) = o[0];
-    *reinterpret_cast<float4*>(x + 4) = o[1];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = (x[i] + acc[i]) + to_float(bv[i]);
-    o[0] = *reinterpret_cast<const float4*>(x);
-    o[1] = *reinterpret_cast<const float4*>(x + 4);
-  } else {
-    uint4 packed;
-    bf16* pk = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float t = acc[i] + to_float(bv[i]);
-      if constexpr (EPI == kGelu)
-        t = t * 0.5f * (1.0f + erff(t * 0.70710678118654752440f));
-      pk[i] = from_float<bf16>(t);
-    }
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + idx) = packed;
-  }
+// ---------------------------------------------------------------- bf16 path
+constexpr int kBK = 64;         // k per stage: one 128-byte swizzle row of A
+constexpr int kSwizzle = 1024;  // bytes of one 8-row 128-byte swizzle atom
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// returns once the barrier's phase of parity `parity` has completed; traps
+// (a launch failure, not a hang) if that takes more than about 10 seconds
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  } while (!done);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// TMA: the box at (c0 innermost, c1) of `map` into smem, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. lbo: bytes between
+// swizzle atoms along M/N (N-major B; unused for K-major A), sbo: bytes
+// between 8-row groups.
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across wgmma_* calls
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// ---------------------------------------------------------------- bf16 path
-constexpr int kBK = 32;
-constexpr int kPad = 8;     // bf16 elements of row padding (keeps 32-byte alignment)
-constexpr int kStages = 3;  // cp.async pipeline depth
+#define ACC8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-template <int BM, int BN, int WARPS>
-constexpr int bf16_smem_bytes() {
-  return kStages * (BM * (kBK + kPad) + kBK * (BN + kPad)) * 2 +
-         WARPS * 16 * 16 * 4;
+// d (64 x BN, fp32) += A (64 x 16, K-major) . B (16 x BN, N-major)
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// BM x BN block tile over a WARPS_M x WARPS_N grid of warps
-template <int BM, int BN, int WARPS_M, int WARPS_N, int EPI>
-__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
-    gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                     const bf16* __restrict__ bias, void* out, int M, int N,
-                     int K) {
-  constexpr int NT = 32 * WARPS_M * WARPS_N;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  constexpr int LDA = kBK + kPad, LDB = BN + kPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);        // kStages x BM x LDA
-  bf16* Bs = As + kStages * BM * LDA;                  // kStages x kBK x LDB
-  float* Cs = reinterpret_cast<float*>(Bs + kStages * kBK * LDB);  // per warp 16x16
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+#undef ACC8
+
+// a BM x BN block tile with a ring of STAGES stages
+template <int BM, int BN, int STAGES>
+struct TileShape {
+  static constexpr int kConsumers = BM / 64;          // warpgroups
+  static constexpr int kThreads = 128 * kConsumers + 32;  // + producer warp
+  static constexpr int kABytes = BM * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBK * BN * 2;
+  // the ring, its 2 * STAGES barriers, and slack to align the ring to 1024
+  static constexpr int kSmem = STAGES * kStageBytes + 16 * STAGES + kSwizzle;
+};
+
+// a BM x BN tile of out; grid (ceil(N / BN), ceil(M / BM))
+template <int BM, int BN, int STAGES, int EPI>
+__global__ void __launch_bounds__(TileShape<BM, BN, STAGES>::kThreads)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const bf16* __restrict__ bias, void* out, int M, int N,
+                      int K) {
+  using S = TileShape<BM, BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles must start on a 1024-byte boundary
+  unsigned char* ring = smem_raw + ((kSwizzle - smem_u32(smem_raw) % kSwizzle) %
+                                    kSwizzle);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::kStageBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* as = As + stage * BM * LDA;
-    bf16* bs = Bs + stage * kBK * LDB;
-    for (int c = tid; c < BM * kBK / 8; c += NT) {
-      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-      cp_async16(as + r * LDA + kc, A + (size_t)(m0 + r) * K + k0 + kc);
+  const int KT = (K + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);                      // the producer's expect_tx
+      mbar_init(&empty[s], 4 * S::kConsumers);     // one arrive per warp
     }
-    for (int c = tid; c < kBK * BN / 8; c += NT) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      cp_async16(bs + r * LDB + nc, W + (size_t)(k0 + r) * N + n0 + nc);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int KT = K / kBK;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < KT) load_tile(st, st * kBK);
-    cp_async_commit();  // one group per stage, empty or not
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp == 4 * S::kConsumers) {
+    // producer: one lane keeps the ring full
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);  // round 0 passes
+        unsigned char* st = ring + s * S::kStageBytes;
+        mbar_expect_tx(&full[s], S::kStageBytes);
+        tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)  // 64-column slabs of W
+          tma_load_2d(st + S::kABytes + j * kBK * 128, &map_w, &full[s],
+                      n0 + 64 * j, kt * kBK);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg computes rows wg*64 .. wg*64+63 of the tile
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();               // ... everyone's; stage of kt - 1 is free
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load_tile(nk % kStages, nk * kBK);
-    cp_async_commit();
-    const bf16* a_s = As + (kt % kStages) * BM * LDA;
-    const bf16* b_s = Bs + (kt % kStages) * kBK * LDB;
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned a_s = smem_u32(ring + s * S::kStageBytes) + wg * 64 * 128;
+    const unsigned b_s = smem_u32(ring + s * S::kStageBytes + S::kABytes);
+    wgmma_fence();
+    fence_acc(acc);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(af[i], a_s + (wm * WM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bfr[j], b_s + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      // A: +32 bytes per 16 k inside the swizzled 128-byte rows; W: +16 rows
+      wgmma_bf16<BN>(acc, wgmma_desc(a_s + kk * 32, 16, kSwizzle),
+                     wgmma_desc(b_s + kk * 16 * 128, kBK * 128, kSwizzle));
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
 
-  float* cs = Cs + warp * 16 * 16;
+  // accumulator layout of m64nNk16: warp w of the group holds rows 16w ..
+  // 16w+15; acc[4j + 2h + e] is row lane/4 + 8h, column 8j + 2(lane%4) + e
+  const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane % 4);
+    if (n >= N) continue;
+    const float2 b2 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + n));
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      // lane -> row lane / 2, columns (lane % 2) * 8 .. + 7 of the 16x16 tile
-      const int r = lane / 2, c0 = (lane % 2) * 8;
-      float v[8];
-      *reinterpret_cast<float4*>(v) =
-          *reinterpret_cast<const float4*>(cs + r * 16 + c0);
-      *reinterpret_cast<float4*>(v + 4) =
-          *reinterpret_cast<const float4*>(cs + r * 16 + c0 + 4);
-      epilogue_store8<EPI>(out, bias, N, m0 + wm * WM + i * 16 + r,
-                           n0 + wn * WN + j * 16 + c0, v);
-      __syncwarp();
+    for (int h = 0; h < 2; ++h) {
+      const int m = row0 + 8 * h;
+      if (m >= M) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      const size_t idx = (size_t)m * N + n;
+      if constexpr (EPI == kResidual) {
+        float2* o = reinterpret_cast<float2*>(static_cast<float*>(out) + idx);
+        float2 x = *o;
+        x.x = (x.x + v0) + b2.x;  // x = x + proj + b, as in `_kernel`
+        x.y = (x.y + v1) + b2.y;
+        *o = x;
+      } else {
+        float t0 = v0 + b2.x, t1 = v1 + b2.y;
+        if constexpr (EPI == kGelu) {
+          t0 = gelu(t0);
+          t1 = gelu(t1);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + idx) =
+            __floats2bfloat162_rn(t0, t1);
+      }
     }
   }
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int EPI>
+// a 2-D row-major bf16 matrix (outer x inner) as a TMA map of box_inner x
+// box_outer tiles, 128-byte swizzle, zeros outside the matrix
+bool tma_map(CUtensorMap* map, const void* base, int inner, int outer,
+             int box_inner, int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int BM, int BN, int STAGES, int EPI>
 cudaError_t launch_bf16(const bf16* A, const bf16* W, const bf16* B, void* out,
-                        int M, int N, int K, cudaStream_t s) {
-  constexpr int smem = bf16_smem_bytes<BM, BN, WARPS_M * WARPS_N>();
-  auto kernel = gemm_bf16_kernel<BM, BN, WARPS_M, WARPS_N, EPI>;
-  if (smem > 48 * 1024) {
-    // without this the launch is refused above the default 48 KB
+                        int M, int N, int K, int dev, cudaStream_t s) {
+  using S = TileShape<BM, BN, STAGES>;
+  CUtensorMap map_a, map_w;
+  if (!tma_map(&map_a, A, K, M, kBK, BM) || !tma_map(&map_w, W, N, K, 64, kBK))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_wgmma_kernel<BM, BN, STAGES, EPI>;
+  // without this the launch is refused above the default 48 KB; once per
+  // device (a few microseconds of host time per call otherwise)
+  static bool smem_set[kMaxDevices] = {};
+  if (dev >= kMaxDevices || !smem_set[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
     if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) smem_set[dev] = true;
   }
-  kernel<<<dim3(N / BN, M / BM), 32 * WARPS_M * WARPS_N, smem, s>>>(
-      A, W, B, out, M, N, K);
+  kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), S::kThreads, S::kSmem,
+           s>>>(map_a, map_w, B, out, M, N, K);
   return cudaSuccess;
 }
 
 // ---------------------------------------------------------------- fp32 path
+constexpr int kF32Threads = 256;
+
 template <int EPI>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                     const float* __restrict__ bias, void* out, int M, int N,
                     int K) {
@@ -275,6 +403,10 @@ __global__ void __launch_bounds__(kThreads)
                                  acc[i][j]);
 }
 
+int tiles(int M, int N, int bm, int bn) {
+  return ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+}
+
 template <int EPI>
 int launch(const void* a, const void* w, const void* bias, void* out, int M,
            int N, int K, int dtype, cudaStream_t s) {
@@ -282,15 +414,21 @@ int launch(const void* a, const void* w, const void* bias, void* out, int M,
     const bf16* A = static_cast<const bf16*>(a);
     const bf16* W = static_cast<const bf16*>(w);
     const bf16* B = static_cast<const bf16*>(bias);
-    // the large tile (4 warps of 64x64) unless it leaves most SMs idle;
-    // then 64x64 tiles of 4 warps of 32x32
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // from a sweep of the 24 GEMM shapes of the l@640 and x@1024 stages on
+    // the card: 128x128 once it gives 1.35 blocks per SM (three stages, so
+    // two blocks fit an SM), else 128x64 from 1.25 blocks per SM, else 64x64
     const cudaError_t e =
-        (M % 128 == 0 && N % 128 == 0 && (M / 128) * (N / 128) >= 100)
-            ? launch_bf16<128, 128, 2, 2, EPI>(A, W, B, out, M, N, K, s)
-            : launch_bf16<64, 64, 2, 2, EPI>(A, W, B, out, M, N, K, s);
+        tiles(M, N, 128, 128) * 20 >= sms * 27
+            ? launch_bf16<128, 128, 3, EPI>(A, W, B, out, M, N, K, dev, s)
+        : tiles(M, N, 128, 64) * 4 >= sms * 5
+            ? launch_bf16<128, 64, 4, EPI>(A, W, B, out, M, N, K, dev, s)
+            : launch_bf16<64, 64, 4, EPI>(A, W, B, out, M, N, K, dev, s);
     if (e != cudaSuccess) return (int)e;
   } else if (dtype == kFloat32) {
-    gemm_f32_kernel<EPI><<<dim3(N / 64, M / 64), kThreads, 0, s>>>(
+    gemm_f32_kernel<EPI><<<dim3(N / 64, M / 64), kF32Threads, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(w),
         static_cast<const float*>(bias), out, M, N, K);
   } else {

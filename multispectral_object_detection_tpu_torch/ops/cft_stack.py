@@ -53,18 +53,30 @@ def layer_norm_plain(x, scale, bias, dtype, eps: float = 1e-5):
     return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dtype)
 
 
+def check_layer_norm(x, scale, bias, dtype) -> None:
+    """Raise ValueError for arguments that ``cft_layernorm`` does not take.
+    Reads shapes and dtypes only, so it runs on CPU or meta tensors. Like
+    the other checks it runs before every launch, so it formats a message
+    only on failure."""
+    require(x.dim() == 2, "layer_norm: x must be (M, C)")
+    C = x.shape[1]
+    require(x.dtype == scale.dtype == bias.dtype == torch.float32,
+            "layer_norm: x, scale and bias must be float32")
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"layer_norm: unsupported dtype {dtype}")
+    if C % 4 or C > 2048:
+        raise ValueError(f"layer_norm: C={C} must be a multiple of 4 and at "
+                         "most 2048")
+    require(scale.shape == bias.shape == (C,), "layer_norm: scale and bias "
+            "must be (C,)")
+
+
 def layer_norm(x, scale, bias, dtype, eps: float = 1e-5):
     """Kernel ``cft_layernorm`` (kernels/csrc/layernorm.cu)."""
     if on_cpu(x, scale, bias):
         return layer_norm_plain(x, scale, bias, dtype, eps)
+    check_layer_norm(x, scale, bias, dtype)
     M, C = x.shape
-    require(x.dtype == scale.dtype == bias.dtype == torch.float32,
-            "layer_norm: x, scale and bias must be float32")
-    require(dtype in DTYPE_CODE, f"layer_norm: unsupported dtype {dtype}")
-    require(C % 4 == 0 and C <= 2048, f"layer_norm: C={C} must be a "
-            "multiple of 4 and at most 2048")
-    require(scale.shape == bias.shape == (C,), "layer_norm: scale and bias "
-            "must be (C,)")
     out = torch.empty((M, C), dtype=dtype, device=x.device)
     check_args("layer_norm", x=x, scale=scale, bias=bias, out=out)
     _launch("layernorm", "cft_layernorm", "cft_layernorm", x.device,
@@ -88,30 +100,45 @@ def linear_plain(a, w, bias, epilogue: str, out=None):
     return t.to(a.dtype)
 
 
-def linear(a, w, bias, epilogue: str, out=None):
-    """Kernel ``cft_gemm`` (kernels/csrc/gemm.cu), one launch."""
-    require(epilogue in EPILOGUES, f"linear: unknown epilogue {epilogue!r}")
+def _check_epilogue(epilogue: str, out) -> None:
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"linear: unknown epilogue {epilogue!r}")
     require((out is not None) == (epilogue == "residual"),
             "linear: `out` is the residual stream, given only for the "
             "'residual' epilogue")
-    tensors = (a, w, bias) + ((out,) if out is not None else ())
-    if on_cpu(*tensors):
-        return linear_plain(a, w, bias, epilogue, out)
+
+
+def check_linear(a, w, bias, epilogue: str, out=None) -> None:
+    """Raise ValueError for arguments that ``cft_gemm`` does not take.
+    Reads shapes and dtypes only, so it runs on CPU or meta tensors."""
+    _check_epilogue(epilogue, out)
+    require(a.dim() == 2 and w.dim() == 2, "linear: a and w must be 2-D")
     M, K = a.shape
     N = w.shape[1]
     require(a.dtype == w.dtype == bias.dtype and a.dtype in DTYPE_CODE,
             "linear: a, w and bias must share one dtype, float32 or bfloat16")
-    require(w.shape == (K, N) and bias.shape == (N,),
-            f"linear: w {tuple(w.shape)} / bias {tuple(bias.shape)} do not "
-            f"fit a {tuple(a.shape)}")
-    require(M % 64 == 0 and N % 64 == 0 and K % 32 == 0,
-            f"linear: needs M % 64 == N % 64 == K % 32 == 0, got "
-            f"M={M} N={N} K={K}")
-    if out is None:
-        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    else:
+    if w.shape != (K, N) or bias.shape != (N,):
+        raise ValueError(f"linear: w {tuple(w.shape)} / bias "
+                         f"{tuple(bias.shape)} do not fit a {tuple(a.shape)}")
+    if M % 64 or N % 64 or K % 32:
+        raise ValueError(f"linear: needs M % 64 == N % 64 == K % 32 == 0, "
+                         f"got M={M} N={N} K={K}")
+    if out is not None:
         require(out.dtype == torch.float32 and out.shape == (M, N),
                 "linear: the residual stream must be float32 (M, N)")
+
+
+def linear(a, w, bias, epilogue: str, out=None):
+    """Kernel ``cft_gemm`` (kernels/csrc/gemm.cu), one launch."""
+    _check_epilogue(epilogue, out)
+    tensors = (a, w, bias) + ((out,) if out is not None else ())
+    if on_cpu(*tensors):
+        return linear_plain(a, w, bias, epilogue, out)
+    check_linear(a, w, bias, epilogue, out)
+    M, K = a.shape
+    N = w.shape[1]
+    if out is None:
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     check_args("linear", a=a, w=w, bias=bias, out=out)
     _launch("gemm", "cft_gemm", f"cft_gemm_{epilogue}", a.device,
             ptr(a), ptr(w), ptr(bias), ptr(out), M, N, K,
@@ -133,22 +160,35 @@ def attention_plain(qkv, batch: int, num_heads: int):
     return o.reshape(M, C).to(qkv.dtype)
 
 
+def check_attention(qkv, batch: int, num_heads: int) -> None:
+    """Raise ValueError for arguments that ``cft_attention`` does not take.
+    Reads shapes and dtypes only, so it runs on CPU or meta tensors."""
+    require(qkv.dim() == 2, "attention: qkv must be (B*N, 3C)")
+    M, C3 = qkv.shape
+    C = C3 // 3
+    require(qkv.dtype in DTYPE_CODE,
+            "attention: qkv must be float32 or bfloat16")
+    if (batch <= 0 or num_heads <= 0 or C3 % 3 or M % batch
+            or C % num_heads):
+        raise ValueError(f"attention: qkv {tuple(qkv.shape)} does not split "
+                         f"into {batch} images and {num_heads} heads")
+    d = C // num_heads
+    if d % 8 or not 0 < d <= 160:
+        raise ValueError(f"attention: head width {d} must be a multiple of 8 "
+                         "and at most 160")
+    if not 0 < M // batch <= 128:
+        raise ValueError(f"attention: {M // batch} tokens per image, at most "
+                         "128")
+
+
 def attention(qkv, batch: int, num_heads: int):
     """Kernel ``cft_attention`` (kernels/csrc/attention.cu)."""
     if on_cpu(qkv):
         return attention_plain(qkv, batch, num_heads)
+    check_attention(qkv, batch, num_heads)
     M, C3 = qkv.shape
     C = C3 // 3
     n = M // batch
-    require(qkv.dtype in DTYPE_CODE,
-            "attention: qkv must be float32 or bfloat16")
-    require(C3 % 3 == 0 and M % batch == 0 and C % num_heads == 0,
-            f"attention: qkv {tuple(qkv.shape)} does not split into "
-            f"{batch} images and {num_heads} heads")
-    d = C // num_heads
-    require(d % 8 == 0 and d <= 160, f"attention: head width {d} must be "
-            "a multiple of 8 and at most 160")
-    require(n <= 128, f"attention: {n} tokens per image, at most 128")
     out = torch.empty((M, C), dtype=qkv.dtype, device=qkv.device)
     check_args("attention", qkv=qkv, out=out)
     _launch("attention", "cft_attention", "cft_attention", qkv.device,

@@ -9,6 +9,10 @@ import pytest
 import torch
 
 from multispectral_object_detection_tpu.ops import pallas_fusion as pf
+from multispectral_object_detection_tpu_torch.models.configs import (
+    yolov5_two_stream)
+from multispectral_object_detection_tpu_torch.models.parser import (
+    parse_model_config)
 from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
 
@@ -117,6 +121,133 @@ def test_attention_plain_matches_jax(heads, d):
     got = cs.attention_plain(torch.from_numpy(qkv), B, heads)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+def _jax_attention(qkv, batch, heads, d):
+    """`_kernel`'s per-(image, head) attention, written in jnp, fp32."""
+    q4 = jnp.asarray(qkv).reshape(batch, -1, 3, heads, d)
+    logits = jnp.einsum("bnhd,bmhd->bhnm", q4[:, :, 0], q4[:, :, 1])
+    att = jax.nn.softmax(logits / jnp.sqrt(jnp.float32(d)), axis=-1)
+    return jnp.einsum("bhnm,bmhd->bnhd", att, q4[:, :, 2]).reshape(
+        qkv.shape[0], heads * d)
+
+
+@pytest.mark.parametrize("d,n", [(24, 128), (40, 128), (136, 128), (40, 100),
+                                 (160, 100)])
+def test_attention_plain_matches_jax_at_odd_widths_and_masked_edge(d, n):
+    """Head widths that are not multiples of 16 (24 and 40: the m and x
+    scales' P3 stages; 136), and N = 100 tokens, where the kernel masks the
+    keys past N of its 128 slots."""
+    rng = np.random.default_rng(d + n)
+    B, heads = 2, 8
+    qkv = rng.standard_normal((B * n, 3 * heads * d)).astype(np.float32)
+    got = cs.attention_plain(torch.from_numpy(qkv), B, heads)
+    want = _jax_attention(qkv, B, heads, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_stack_plain_matches_jax_reference_at_100_tokens():
+    """The whole stack at N = 100 tokens and the m scale's P3 width (C = 192,
+    head width 24) against the JAX package's reference."""
+    rng = np.random.default_rng(11)
+    C, L = 192, 1
+
+    def f(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ln():
+        return np.stack([1 + f(L, C, scale=0.1), f(L, C, scale=0.1)], 1)
+
+    x = f(2, 100, C, scale=1.0)
+    ws = [f(L, C, 3 * C), f(L, 3 * C), f(L, C, C), f(L, C), f(L, C, 4 * C),
+          f(L, 4 * C), f(L, 4 * C, C), f(L, C), ln(), ln()]
+    t, j = _cast(x, ws, torch.float32, jnp.float32)
+    got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
+    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_linear_plain_matches_jax_at_ragged_n(epilogue):
+    """N = 320, a multiple of 64 but not of 128 (proj and fc2 at the x
+    scale's P3 stage; its QKV has N = 960), where the kernel's 128-wide
+    tiles run past the matrix."""
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal((128, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 320)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(320).astype(np.float32)
+    s = rng.standard_normal((128, 320)).astype(np.float32)
+    acc = jnp.dot(jnp.asarray(a), jnp.asarray(w))
+    if epilogue == "residual":
+        want = jnp.asarray(s) + acc + b
+        got = cs.linear_plain(torch.from_numpy(a), torch.from_numpy(w),
+                              torch.from_numpy(b), epilogue,
+                              out=torch.from_numpy(s.copy()))
+    else:
+        want = acc + b
+        want = pf._gelu_exact(want) if epilogue == "gelu" else want
+        got = cs.linear_plain(torch.from_numpy(a), torch.from_numpy(w),
+                              torch.from_numpy(b), epilogue)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def _cft_widths(scale):
+    """d_model of each CFT stage of the paper config at ``scale``."""
+    spec = parse_model_config(yolov5_two_stream(scale))
+    return [n.c2 for n in spec.nodes if n.kind == "GPT"]
+
+
+@pytest.mark.parametrize("scale", ["n", "s", "m", "l", "x"])
+def test_kernel_argument_checks_take_every_cft_shape(scale):
+    """Every LayerNorm, GEMM and attention call of the CFT stages of
+    ``scale`` at batch 1, 8 and 16 passes the kernels' argument checks, in
+    bf16 and fp32, on meta tensors (no card needed). TTA's 544 and 448 px
+    passes pool to the same 8x8 grid, so they make the same calls."""
+    widths = _cft_widths(scale)
+    assert len(widths) == 3
+    n_tok = 2 * 8 * 8
+    meta = {"device": "meta"}
+    for dt in (torch.bfloat16, torch.float32):
+        for batch in (1, 8, 16):
+            M = batch * n_tok
+            for C in widths:
+                x = torch.empty(M, C, **meta)
+                ln = torch.empty(C, **meta)
+                cs.check_layer_norm(x, ln, ln, dt)
+                for K, N, epi in ((C, 3 * C, "bias"), (C, C, "residual"),
+                                  (C, 4 * C, "gelu"), (4 * C, C, "residual")):
+                    out = (torch.empty(M, N, **meta) if epi == "residual"
+                           else None)
+                    cs.check_linear(torch.empty(M, K, dtype=dt, **meta),
+                                    torch.empty(K, N, dtype=dt, **meta),
+                                    torch.empty(N, dtype=dt, **meta), epi,
+                                    out=out)
+                cs.check_attention(torch.empty(M, 3 * C, dtype=dt, **meta),
+                                   batch, 8)
+
+
+@pytest.mark.parametrize("case", ["head_width", "tokens", "gemm_n",
+                                  "gemm_dtype", "ln_width"])
+def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take(case):
+    meta = {"device": "meta", "dtype": torch.bfloat16}
+    with pytest.raises(ValueError):
+        if case == "head_width":  # C = 96: head width 12
+            cs.check_attention(torch.empty(256, 288, **meta), 2, 8)
+        elif case == "tokens":  # 129 tokens per image
+            cs.check_attention(torch.empty(258, 768, **meta), 2, 8)
+        elif case == "gemm_n":  # N = 96
+            cs.check_linear(torch.empty(128, 64, **meta),
+                            torch.empty(64, 96, **meta),
+                            torch.empty(96, **meta), "bias")
+        elif case == "gemm_dtype":
+            cs.check_linear(torch.empty(128, 64, **meta),
+                            torch.empty(64, 64, device="meta"),
+                            torch.empty(64, **meta), "bias")
+        else:  # C = 4096
+            x = torch.empty(128, 4096, device="meta")
+            cs.check_layer_norm(x, x[0], x[0], torch.bfloat16)
 
 
 @pytest.mark.parametrize("C", [1280, 2048])
