@@ -15,7 +15,9 @@ failure raises and the script exits non-zero:
    scale), the attention at head widths 8 to 160 (24 and 40 included) with
    128 tokens and with 100 (the masked edge), the whole 8-layer stack, and
    the fused C3 bottleneck (K2) at the shapes of the l@640 and x@1024 bench
-   legs and at an odd shape.
+   legs, at an odd shape and at the edges of its TMA boxes (an image
+   smaller than one box, ragged boxes, C = 192 and 320), in bf16 with bf16
+   and fp32 biases and in fp32.
 3. the main path: ``Detector`` on the l-scale two-stream transformerx3
    config (nc=1, random weights from a seed, BN folded, bf16) serves three
    requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
@@ -28,12 +30,14 @@ failure raises and the script exits non-zero:
    ``--c3-kernel`` at x@1024 bs8. Checks each leg's launch counts (K2 at
    exactly 42 blocks of two launches per l forward, 24 per x forward) and
    that the ``--c3-kernel`` forward agrees with one through K2's plain
-   version.
+   version; that forward's device time by kind of operation; the device
+   time of the three forwards of a ``--tta`` batch, with K2 and without.
 5. timing with CUDA events: each kernel over one forward's launches at the
    main path's shapes (K2 at the ``--c3-kernel`` leg's), beside its bound,
    its achieved TFLOP/s and share of the bound, its plain version and one
    PyTorch library call for the same function; LayerNorm and attention at
-   the x scale's P5 stage; the main path's ms per batch.
+   the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
+   K2's two launches apart; the main path's ms per batch and its profile.
 6. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -62,8 +66,13 @@ IMG, BATCH, REQUESTS = 640, 16, 3
 # K2 blocks of one l@640 bs16 forward with --c3-kernel: (B, H, W, C), count
 K2_BLOCKS = (((16, 160, 160, 64), 6), ((16, 80, 80, 128), 18),
              ((16, 40, 40, 256), 18))
-K2_X_SHAPE = (8, 64, 64, 320)             # x@1024 bs8, 24 blocks
+K2_X_SHAPE, K2_X_BLOCKS = (8, 64, 64, 320), 24  # x@1024 bs8
 K2_ODD_SHAPE = (2, 17, 23, 64)
+# shapes at the edges of K2's TMA boxes (8 x 8 pixels x 64 channels): an
+# image smaller than one box, ragged boxes in H and W at C = 128, three
+# and five 64-channel slabs
+K2_EDGE_SHAPES = ((1, 3, 5, 64), (2, 13, 19, 128), (2, 24, 40, 192),
+                  (2, 24, 40, 320))
 # max |kernel - plain| / max |plain|, with the reason for each bound:
 TOL_FP32 = 2e-5        # sum order only (fp32 FMA both sides, no TF32)
 TOL_BF16 = 8e-3        # both round the same fp32 value: <= 2 bf16 ulps apart
@@ -79,6 +88,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "cft_gemm_residual": (CSRC + "gemm.cu", CFT_SOURCE),
     "cft_attention": (CSRC + "attention.cu", CFT_SOURCE),
     "c3_bottleneck": (CSRC + "c3_bottleneck.cu", C3_SOURCE),
+    # K2 at the x scale: the 24 blocks of one x@1024 bs8 --c3-kernel forward
+    "c3_bottleneck_x": (CSRC + "c3_bottleneck.cu", C3_SOURCE),
 }
 
 
@@ -221,15 +232,17 @@ def phase_checks(torch, cs, k2, device):
                    TOL_BF16_STACK if dt == torch.bfloat16 else TOL_FP32)
         # K2; in bf16 with bf16 biases (the cast model) and fp32 ones
         # (--fp32-params)
-        main_shapes = tuple(sh for sh, _ in K2_BLOCKS) + (K2_X_SHAPE,)
-        for shape in main_shapes + (K2_ODD_SHAPE,):
+        l_shapes = tuple(sh for sh, _ in K2_BLOCKS)
+        for shape in (l_shapes + (K2_X_SHAPE, K2_ODD_SHAPE)
+                      + K2_EDGE_SHAPES):
             for bdt in ((dt,) if dt == torch.float32
                         else (dt, torch.float32)):
                 args = k2_inputs(shape, dt, bdt, gen, device)
                 name = "c3_bottleneck" + (" b32" if bdt != dt else "")
                 report(name, dt, shape, k2.c3_bottleneck(*args),
                        k2.c3_bottleneck_plain(*args), tol,
-                       "c3_bottleneck" if shape in main_shapes else None)
+                       "c3_bottleneck" if shape in l_shapes else
+                       "c3_bottleneck_x" if shape == K2_X_SHAPE else None)
                 del args
     return worst
 
@@ -308,9 +321,11 @@ def phase_main_path(torch, device):
 
 def phase_bench(torch, device):
     """Phase 4: every leg of the port's bench at full width, a few batches
-    each, with the launch counts of each leg's run, and the device ms of one
-    forward (graph replay) of the default, --c3-kernel and x legs. Returns
-    the legs' result lines and the K2 launches of the --c3-kernel leg."""
+    each, with the launch counts of each leg's run, the device ms of one
+    forward (graph replay) of the default, --c3-kernel and x legs and of a
+    --tta batch's three forwards (with K2 and without), and the
+    --c3-kernel forward's profile. Returns the legs' result lines and the K2
+    launches of the --c3-kernel leg and of the x leg."""
     from multispectral_object_detection_tpu_torch import bench
     from multispectral_object_detection_tpu_torch.models.fusion import (
         CrossModalFusion)
@@ -318,12 +333,14 @@ def phase_bench(torch, device):
         Bottleneck)
     from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.train.tta import (
+        FLIPS, SCALES, _scale_img)
 
     few = ["--iters", "5", "--warmup", "1"]
     x_leg = ["--scale", "x", "--img", "1024", "--batch", "8", "--c3-kernel"]
     legs = [[], ["--c3-kernel"], ["--int8"], ["--tta", "--c3-kernel"],
             ["--fp32-params"], ["--no-nms"], x_leg]
-    results, fwd_ms, k2_launches = {}, {}, None
+    results, fwd_ms, k2_launches = {}, {}, {}
     for leg in legs:
         name = " ".join(leg) or "default"
         args = bench.parse_args(leg + few)
@@ -366,8 +383,32 @@ def phase_bench(torch, device):
         if name in ("default", "--c3-kernel") or leg is x_leg:
             with torch.inference_mode():
                 fwd_ms[name] = graph_ms(lambda: model(x, x2), replays=10)
+        if args.tta:
+            # the forwards of the three passes (640 px, 544 px flipped,
+            # 448 px) on their inputs, with K2 and through the route
+            # without the flag
+            cl = torch.channels_last
+            passes = [((x.flip(-1), x2.flip(-1)) if f else (x, x2), s)
+                      for s, f in zip(SCALES, FLIPS)]
+            passes = [tuple((_scale_img(t, s) if s != 1.0 else t)
+                            .contiguous(memory_format=cl) for t in p)
+                      for p, s in passes]
+            with torch.inference_mode():
+                fwd_ms[name] = graph_ms(
+                    lambda: [model(*p) for p in passes], replays=10)
+                for m in blocks:
+                    m.fits_kernel = False
+                fwd_ms[name + " (K2 off)"] = graph_ms(
+                    lambda: [model(*p) for p in passes], replays=10)
+                for m in blocks:
+                    m.fits_kernel = True
+            del passes
+        if leg is x_leg:
+            k2_launches["c3_bottleneck_x"] = got["c3_bottleneck"]
         if name == "--c3-kernel":
-            k2_launches = got["c3_bottleneck"]
+            k2_launches["c3_bottleneck"] = got["c3_bottleneck"]
+            with torch.inference_mode():
+                profile_forward(torch, lambda: model(x, x2), name)
             with torch.inference_mode():
                 raw_k = model(x, x2)
                 for m in blocks:
@@ -420,7 +461,7 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
                 "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                 "bound_ms": 0.0, "ops": 0.0, "by_c": {}}
 
-    rows = {k: new_row() for k in KERNELS}
+    rows = {k: new_row() for k in KERNELS if k != "c3_bottleneck_x"}
     # LayerNorm and attention at the x scale's P5 stage (x@1024 bs8)
     xrows = {"cft_layernorm": new_row(), "cft_attention": new_row()}
     bf = torch.bfloat16
@@ -515,18 +556,37 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
         lambda: [F.scaled_dot_product_attention(q, k, v) for _ in range(L)],
         [attn_cost(Bx, C)] * L, "bf16")
 
-    # K2: the 42 blocks of one l@640 bs16 forward with --c3-kernel, each on
-    # inputs of its own (no L2 reuse between blocks)
-    for shape, n in K2_BLOCKS:
+    # K2: the 42 blocks of one l@640 bs16 forward with --c3-kernel, and the
+    # 24 of one x@1024 bs8 forward, each block on inputs of its own (no L2
+    # reuse between blocks); both launches together, then each apart
+    xrows["c3_bottleneck"] = new_row()
+    k2_split = {}  # C -> blocks, 1x1 and 3x3 ms, their bounds, 3x3 TFLOP/s
+    for shape, n in K2_BLOCKS + ((K2_X_SHAPE, K2_X_BLOCKS),):
+        row = xrows if shape == K2_X_SHAPE else rows
         blocks = [k2_inputs(shape, bf, bf, gen, device) for _ in range(n)]
         libs = [k2_library(*b) for b in blocks]
         P, C = shape[0] * shape[1] * shape[2], shape[3]
         cost = (2 * (2 * P * C + 10 * C * C + 2 * C), 20 * P * C * C)
-        add(rows["c3_bottleneck"], C,
+        add(row["c3_bottleneck"], C,
             lambda: [k2.c3_bottleneck(*b) for b in blocks],
             lambda: [k2.c3_bottleneck_plain(*b) for b in blocks],
             lambda: [f() for f in libs], [cost] * n, "bf16")
-        del blocks, libs
+        zs = [torch.empty_like(b[0]) for b in blocks]
+        outs = [torch.empty_like(b[0]) for b in blocks]
+        ms1 = graph_ms(lambda: [k2.c3_conv(x, w1, b1, None, z, 1) for
+                                (x, w1, b1, _, _), z in zip(blocks, zs)])
+        ms9 = graph_ms(lambda: [k2.c3_conv(z, w2, b2, x, o, 9) for
+                                (x, _, _, w2, b2), z, o in
+                                zip(blocks, zs, outs)])
+        # per launch: the 1x1 reads x and writes z, the 3x3 reads z and x
+        # and writes y
+        bound1 = n * max(2 * (2 * P * C + C * C + C) / PEAK_BYTES_PER_S,
+                         2 * P * C * C / PEAK_FLOPS["bf16"]) * 1e3
+        bound9 = n * max(2 * (3 * P * C + 9 * C * C + C) / PEAK_BYTES_PER_S,
+                         18 * P * C * C / PEAK_FLOPS["bf16"]) * 1e3
+        k2_split[C] = (n, ms1, ms9, bound1, bound9,
+                       n * 18 * P * C * C / ms9 / 1e9)
+        del blocks, libs, zs, outs
     torch.cuda.synchronize()
     # the two-launch design's own floor: it also writes z, reads it back and
     # reads x a second time for the residual
@@ -536,7 +596,6 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
         floor_2l += n * max(2 * (5 * P * C + 10 * C * C + 2 * C)
                             / PEAK_BYTES_PER_S, 20 * P * C * C
                             / PEAK_FLOPS["bf16"]) * 1e3
-
     print(f"timing on: {card}")
     print("per forward (3 stages x 8 layers; K2: 42 blocks), device ms from "
           "CUDA-graph replay; eager = launched from the host one by one")
@@ -549,8 +608,9 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
               f"{r['plain_ms']:10.4f} {r['library_ms']:11.4f} "
               f"{r['bound_ms']:9.4f} {r['bound_by']:<10} "
               f"{r['ops'] / r['ms'] / 1e9:8.1f} {r['bound_ms'] / r['ms']:8.1%}")
-    print("(x rows: the x scale's P5 stage at x@1024 bs8, C=1280, head "
-          "width 160)")
+    print("(x rows: LayerNorm and attention at the x scale's P5 stage at "
+          "x@1024 bs8, C=1280, head width 160; K2 over the 24 blocks of one "
+          "x@1024 bs8 forward, C=320)")
     print("device ms per stage, C = " + " / ".join(map(str, STAGE_WIDTHS)))
     for name, r in rows.items():
         print(f"{name:<18} " + " / ".join(f"{r['by_c'][C]:.4f}"
@@ -558,6 +618,11 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
     print(f"(K2 by block class C = 64 / 128 / 256, 6 / 18 / 18 blocks.) "
           f"The two-launch design's own floor, with z written and read back "
           f"and x read twice: {floor_2l:.4f} ms per forward")
+    print("K2 per launch, device ms per forward (graph replay): "
+          "C blocks  1x1_ms  bound  3x3_ms  bound  3x3_TFLOP/s")
+    for C, (n, ms1, ms9, b1, b9, tf) in k2_split.items():
+        print(f"  K2 C={C:<4} x{n:<3} {ms1:8.4f} {b1:7.4f} {ms9:8.4f} "
+              f"{b9:7.4f} {tf:8.1f}")
     # end to end: one request of BATCH pairs already on the card
     rgb, ir = batches[0]
     ms_infer = cuda_ms(lambda: det.infer(rgb, ir), iters=10, warmup=2)
@@ -589,11 +654,11 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
           "device")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
-    profile_forward(torch, lambda: det.raw(rgb, ir))
-    return rows
+    profile_forward(torch, lambda: det.raw(rgb, ir), "Detector")
+    return rows, xrows
 
 
-def profile_forward(torch, fn, runs: int = 2) -> None:
+def profile_forward(torch, fn, label: str, runs: int = 2) -> None:
     """Device time of the forward by kind of operation (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,6 +672,7 @@ def profile_forward(torch, fn, runs: int = 2) -> None:
         "CFT kernels": ("layernorm_kernel", "gemm_wgmma_kernel",
                         "gemm_f32_kernel", "attention_mma_kernel",
                         "attention_f32_kernel"),
+        "C3 kernel (K2)": ("conv_wgmma_kernel", "conv_f32_kernel"),
         "convolution": ("fprop", "conv", "xmma", "implicit"),
         "silu": ("silu",),
         "other elementwise (bias add, residual add)": ("elementwise",),
@@ -626,7 +692,7 @@ def profile_forward(torch, fn, runs: int = 2) -> None:
         kind = next((k for k, pats in kinds.items()
                      if any(p in name for p in pats)), "other")
         per_kind[kind] += e.self_device_time_total / 1e3 / runs
-    print(f"profile of the forward (torch.profiler, {runs} runs): "
+    print(f"profile of the {label} forward (torch.profiler, {runs} runs): "
           f"{total:.3f} ms of kernels per forward; " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in per_kind.items()))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -667,13 +733,15 @@ def main() -> int:
     print("phase 2: every kernel matches its plain version")
     det, batches, stages, launches = phase_main_path(torch, device)
     print("phase 3: main path served through the kernels")
-    legs, launches["c3_bottleneck"] = phase_bench(torch, device)
+    legs, k2_launches = phase_bench(torch, device)
+    launches.update(k2_launches)
     print(f"phase 4: {len(legs)} bench legs ran through the kernels")
-    rows = phase_timing(torch, F, cs, k2, device, det, batches, stages, card)
+    rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
+                               stages, card)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
-        r = rows[name]
+        r = xrows["c3_bottleneck"] if name == "c3_bottleneck_x" else rows[name]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": worst[name], "ms": r["ms"],

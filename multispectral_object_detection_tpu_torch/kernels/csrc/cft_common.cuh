@@ -1,6 +1,7 @@
 // Shared helpers of the port's kernels (layernorm.cu, gemm.cu, attention.cu,
-// c3_bottleneck.cu). Each kernel file exposes a plain C entry point that
-// launches on the caller's stream and returns cudaGetLastError() as an int.
+// c3_bottleneck.cu; those of the wgmma kernels are in hopper.cuh). Each
+// kernel file exposes a plain C entry point that launches on the caller's
+// stream and returns cudaGetLastError() as an int.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,7 +37,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ------------------------------------ tensor-core helpers (attention, K2)
+// ------------------------------ smem, cp.async and mma.sync (attention.cu)
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -47,9 +48,6 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
   const int n = ok ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(smem)), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  cp_async16_zfill(smem, gmem, true);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

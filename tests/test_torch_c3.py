@@ -29,11 +29,15 @@ from multispectral_object_detection_tpu.utils.torch_import import (
     convert_state_dict)
 from multispectral_object_detection_tpu_torch.models import configs
 from multispectral_object_detection_tpu_torch.models import layers as L
+from multispectral_object_detection_tpu_torch.models.fusion import (
+    CrossModalFusion)
 from multispectral_object_detection_tpu_torch.models.model import (
     build_model, fuse_conv_bn, load_reference_state_dict)
 from multispectral_object_detection_tpu_torch.models.quantize import (
     conv_weight, quantize_int8, quantized_bytes)
 from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+from multispectral_object_detection_tpu_torch.ops.cft_stack import (
+    fused_cft_stack_plain)
 from multispectral_object_detection_tpu_torch.train.tta import tta_forward
 from multispectral_object_detection_tpu_torch.utils.jax_import import (
     state_dict_from_jax)
@@ -96,6 +100,84 @@ def test_wrapper_rejects_mixed_devices():
     x, w1, b1, w2, b2 = _torch(_k2_inputs((1, 4, 4, 64), seed=5))
     with pytest.raises(ValueError):
         k2.c3_bottleneck(x, w1.to("meta"), b1, w2, b2)
+
+
+def _k2_shapes(scale, img, batch):
+    """(B, H, W, C) of every bottleneck that takes the kernel in the
+    two-stream paper config at ``scale``, from a forward on meta tensors."""
+    model = build_model(configs.yolov5_two_stream(scale), device="meta",
+                        use_c3_kernel=True)
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, CrossModalFusion):
+            m.stack_fn = fused_cft_stack_plain  # the kernels take no meta
+        elif isinstance(m, L.Bottleneck) and m.fits_kernel:
+            m.register_forward_hook(lambda mod, a, out: shapes.append(
+                tuple(a[0].permute(0, 2, 3, 1).shape)))
+    x = torch.empty(batch, 3, img, img, device="meta")
+    with torch.no_grad():
+        model(x, x)
+    return shapes
+
+
+# bench size of each scale, and its K2 blocks per forward
+K2_BENCH = {"n": (640, 16, 6), "s": (640, 16, 12), "m": (640, 16, 12),
+            "l": (640, 16, 42), "x": (1024, 8, 24)}
+# shapes that reach the kernel's TMA edges: ragged boxes, an image smaller
+# than one box, three and five 64-channel slabs
+K2_EDGES = [(2, 17, 23, 64), (1, 3, 5, 64), (2, 24, 40, 192), (2, 24, 40, 320)]
+
+
+def _meta_k2_args(shape, dtype, bias_dtype):
+    C = shape[-1]
+    meta = {"device": "meta", "dtype": dtype}
+    return (torch.empty(shape, **meta), torch.empty(C, C, **meta),
+            torch.empty(C, device="meta", dtype=bias_dtype),
+            torch.empty(9, C, C, **meta),
+            torch.empty(C, device="meta", dtype=bias_dtype))
+
+
+@pytest.mark.parametrize("scale", sorted(K2_BENCH))
+def test_check_c3_takes_every_k2_shape_at_bench_size(scale):
+    """Every bottleneck that takes the kernel at the scale's bench size
+    passes ``check_c3``, in bf16 with bf16 and fp32 biases and in fp32 (no
+    card needed); the edge shapes of chip_smoke.py's phase 2 as well."""
+    img, batch, blocks = K2_BENCH[scale]
+    shapes = _k2_shapes(scale, img, batch)
+    assert len(shapes) == blocks
+    assert all(s[-1] % 64 == 0 for s in shapes)
+    for shape in set(shapes) | set(K2_EDGES):
+        for dt, bdt in ((torch.bfloat16, torch.bfloat16),
+                        (torch.bfloat16, torch.float32),
+                        (torch.float32, torch.float32)):
+            x, w1, b1, w2, b2 = _meta_k2_args(shape, dt, bdt)
+            k2.check_c3(x, w1, b1, w2, b2)
+            k2.check_c3(x, w1, b1, w2.view(3, 3, *w2.shape[1:]), b2)
+
+
+@pytest.mark.parametrize("case", ["channels", "mixed_dtypes", "w1_shape",
+                                  "w2_shape", "bias_dtype", "bias_shape",
+                                  "rank"])
+def test_check_c3_refuses_what_the_kernel_does_not_take(case):
+    x, w1, b1, w2, b2 = _meta_k2_args((2, 8, 8, 128), torch.bfloat16,
+                                      torch.bfloat16)
+    if case == "channels":  # C = 96
+        x, w1, b1, w2, b2 = _meta_k2_args((2, 8, 8, 96), torch.bfloat16,
+                                          torch.bfloat16)
+    elif case == "mixed_dtypes":
+        w2 = w2.float()
+    elif case == "w1_shape":
+        w1 = torch.empty(128, 64, device="meta", dtype=torch.bfloat16)
+    elif case == "w2_shape":  # 9 C^2 elements, but not (9, C, C) or HWIO
+        w2 = w2.view(3, 384, 128)
+    elif case == "bias_dtype":
+        b2 = b2.to(torch.float16)
+    elif case == "bias_shape":
+        b1 = torch.empty(64, device="meta", dtype=torch.bfloat16)
+    else:
+        x = x[0]
+    with pytest.raises(ValueError):
+        k2.check_c3(x, w1, b1, w2, b2)
 
 
 def _counting(model):
