@@ -32,22 +32,38 @@ failure raises and the script exits non-zero:
    that the ``--c3-kernel`` forward agrees with one through K2's plain
    version; that forward's device time by kind of operation; the device
    time of the three forwards of a ``--tta`` batch, with K2 and without.
-5. timing with CUDA events: each kernel over one forward's launches at the
+5. the eval path: the port's test CLI (``cli.test_cli.run``, data as a
+   dict) on a synthetic set of 64 seeded PNG pairs at 640x512 (LLVIP's
+   aspect, nc=1) with random-weight reference-layout ``.pt`` checkpoints
+   of the l-scale model (seeds 0 and 1), at the CLI defaults (batch 32,
+   640 px, rect batches, conf 0.001, IoU 0.6, bf16): ``val``,
+   ``--save-hybrid``, ``--augment``, two checkpoints with
+   ``--ensemble-mode cat`` and ``ds``, ``--int8`` and ``--task speed``.
+   Checks finite metrics over all 64 images, hybrid mAP50 and mAP >= 0.95,
+   the K1 launches of every run's forwards, and one eval batch's decoded
+   outputs through the kernels against the plain stack; prints an
+   ``{"eval": {...}}`` line (s per image, forward / NMS / matching ms per
+   image, NMS candidates per image and iterations per batch, mAP50, mAP).
+6. timing with CUDA events: each kernel over one forward's launches at the
    main path's shapes (K2 at the ``--c3-kernel`` leg's), beside its bound,
    its achieved TFLOP/s and share of the bound, its plain version and one
    PyTorch library call for the same function; LayerNorm and attention at
    the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
    K2's two launches apart; the main path's ms per batch and its profile.
-6. a ``{"kernels": [...]}`` line, the card line, and the final
+7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -63,6 +79,9 @@ GEMM_M1024_WIDTHS = (320, 192)
 ATTN_WIDTHS = (8, 24, 32, 40, 64, 128, 136, X_P5 // 8)  # head widths checked
 ATTN_N_EDGE = 100                          # tokens per image, masked edge
 IMG, BATCH, REQUESTS = 640, 16, 3
+# eval phase: LLVIP-shaped synthetic pairs (h, w), at the test CLI's defaults
+EVAL_IMAGES, EVAL_HW, EVAL_BATCH = 64, (512, 640), 32
+EVAL_MIN_HYBRID_MAP = 0.95
 # K2 blocks of one l@640 bs16 forward with --c3-kernel: (B, H, W, C), count
 K2_BLOCKS = (((16, 160, 160, 64), 6), ((16, 80, 80, 128), 18),
              ((16, 40, 40, 256), 18))
@@ -429,6 +448,161 @@ def phase_bench(torch, device):
     return results, k2_launches
 
 
+def phase_eval(torch, device):
+    """Phase 5: the test CLI's runs on a synthetic set. Returns the eval
+    line's per-run numbers."""
+    from multispectral_object_detection_tpu_torch.cli import test_cli
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, init_weights)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.ops.boxes import (
+        pairwise_iou, xywh_to_xyxy)
+    from multispectral_object_detection_tpu_torch.ops.ds_fusion import (
+        fuse_detections)
+    from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
+
+    scratch = Path(__file__).resolve().parent / ".scratch"
+    scratch.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=scratch))
+    try:
+        t0 = time.perf_counter()
+        rgb_dir, ir_dir = make_paired_dataset(
+            str(root / "data"), n_images=EVAL_IMAGES, nc=1, seed=0,
+            img_hw=EVAL_HW)
+        cfg = get_config("yolov5l_fusion_transformerx3", nc=1)
+        ckpts = []
+        for seed in (0, 1):
+            m = build_model(cfg, nc=1)
+            init_weights(m, torch.Generator().manual_seed(seed))
+            ckpts.append(str(root / f"l_seed{seed}.pt"))
+            torch.save(m.state_dict(), ckpts[-1])
+            del m
+        data = {"val_rgb": rgb_dir, "val_ir": ir_dir, "nc": 1,
+                "names": ["person"]}
+        print(f"eval: {EVAL_IMAGES} PNG pairs at {EVAL_HW[1]}x{EVAL_HW[0]} "
+              f"and two l-scale checkpoints written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        per_forward = {"cft_layernorm": 48, "cft_gemm_bias": 24,
+                       "cft_gemm_gelu": 24, "cft_gemm_residual": 48,
+                       "cft_attention": 24, "c3_bottleneck": 0}
+        batches = -(-EVAL_IMAGES // EVAL_BATCH)
+        # run -> (extra flags, checkpoints, forwards per batch)
+        runs = {"val": ([], 1, 1), "save-hybrid": (["--save-hybrid"], 1, 1),
+                "augment": (["--augment"], 1, 3),
+                "ensemble cat": (["--ensemble-mode", "cat"], 2, 2),
+                "ensemble ds": (["--ensemble-mode", "ds"], 2, 2),
+                "int8": (["--int8"], 1, 1), "speed": (["--task", "speed"], 1, 0)}
+        out = {}
+        for name, (extra, n_ckpt, fwd_per_batch) in runs.items():
+            args = test_cli.parse_args(
+                ["--data", "dict", "--weights", *ckpts[:n_ckpt],
+                 "--project", str(root / "runs")] + extra)
+            args.data = data
+            cs.reset_launches()
+            k2.reset_launches()
+            t0 = time.perf_counter()
+            res = test_cli.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {**cs.LAUNCHES, **k2.LAUNCHES}
+            forwards = (3 + 20) if name == "speed" else batches * fwd_per_batch
+            want = {k: v * forwards for k, v in per_forward.items()}
+            print(f"eval {name}: {wall:.2f} s, {forwards} forwards, "
+                  f"launches {got}")
+            check(got == want, f"eval {name}: launch counts {got} != {want}")
+            if name == "speed":
+                check(res["ms_per_image"] > 0, "speed task")
+                out[name] = {"ms_per_image": res["ms_per_image"],
+                             "s_wall": wall}
+                continue
+            keys = ("map50", "map", "mp", "mr", "t_infer_ms", "t_nms_ms",
+                    "t_match_ms", "nms_candidates", "nms_iterations")
+            check(res["seen"] == EVAL_IMAGES,
+                  f"eval {name}: seen {res['seen']} != {EVAL_IMAGES}")
+            check(all(math.isfinite(float(res[k])) for k in keys),
+                  f"eval {name}: non-finite {res}")
+            out[name] = {"s_per_image": wall / res["seen"],
+                         **{k: res[k] for k in keys}}
+            print(f"eval {name}: " + json.dumps(out[name]))
+        hyb = out["save-hybrid"]
+        check(hyb["map50"] >= EVAL_MIN_HYBRID_MAP
+              and hyb["map"] >= EVAL_MIN_HYBRID_MAP,
+              f"hybrid mAP50 {hyb['map50']} / mAP {hyb['map']} < "
+              f"{EVAL_MIN_HYBRID_MAP}")
+
+        # one eval batch through the kernels and through the plain stack;
+        # and what can hold the hybrid mAP below 1: model scores of
+        # exactly 1.0 (ranked ahead of the injected labels) and
+        # same-class ground truth overlapping above the NMS IoU
+        args = test_cli.parse_args(["--data", "dict", "--weights", ckpts[0]])
+        models, fwd = test_cli.build_forward(args, data, device)
+        ds, loader = test_cli.make_loader(args, data, IMG, 1)
+        batch = next(iter(loader))
+        rgb = torch.from_numpy(batch["rgb"]).to(device)
+        ir = torch.from_numpy(batch["ir"]).to(device)
+        dets_k = fwd(rgb, ir)[0]
+        stages = [m for m in models[0].modules()
+                  if isinstance(m, CrossModalFusion)]
+        for m in stages:
+            m.stack_fn = cs.fused_cft_stack_plain
+        dets_p = fwd(rgb, ir)[0]
+        for m in stages:
+            m.stack_fn = cs.fused_cft_stack
+        torch.cuda.synchronize()
+        rel = rel_err(dets_k, dets_p)[0]
+        print(f"eval: decoded outputs of a {tuple(dets_k.shape)} batch at "
+              f"{tuple(rgb.shape[1:3])} px, kernels vs plain stack: "
+              f"rel={rel:.3e} tol={TOL_BF16_MODEL:.1e}")
+        check(rel <= TOL_BF16_MODEL, f"eval decoded outputs disagree: {rel:.3e}")
+        # NMS at the eval protocol on that batch: host wall against the
+        # device time of its kernels
+        def nms():
+            return batched_nms(dets_k, conf_thres=0.001, iou_thres=0.6,
+                               multi_label=True, max_det=300, top_k=30000)
+
+        nms()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            nms()
+        torch.cuda.synchronize()
+        nms_wall = (time.perf_counter() - t0) / 3 * 1e3
+        nms_dev, nms_launches = device_time(torch, nms)
+        print(f"eval: NMS at the eval protocol on that batch: {nms_wall:.3f} "
+              f"ms per batch from the host, {nms_dev:.3f} ms of device time "
+              f"in {nms_launches} kernel launches (torch.profiler)")
+        # the Dempster-Shafer combination of two members' outputs, warm
+        ds_ms = cuda_ms(lambda: fuse_detections(torch.stack([dets_k, dets_p])),
+                        iters=5, warmup=1)
+        print(f"eval: Dempster-Shafer fusion of two members' outputs of that "
+              f"batch: {ds_ms:.3f} ms")
+        out["nms_batch"] = {"wall_ms": nms_wall, "device_ms": nms_dev,
+                            "launches": nms_launches, "ds_fusion_ms": ds_ms}
+        saturated = int((dets_k[..., 4] * dets_k[..., 5] >= 1.0).sum())
+        overlaps = 0
+        for lab in ds.labels:
+            b = xywh_to_xyxy(torch.from_numpy(lab[:, 1:5]))
+            iou = pairwise_iou(b, b).triu(diagonal=1)
+            overlaps += int((iou > 0.6).sum())
+        print(f"eval: hybrid mAP50 {hyb['map50']!r}, mAP {hyb['map']!r}; "
+              f"model scores of exactly 1.0 in that batch: {saturated}; "
+              f"ground-truth pairs overlapping above IoU 0.6: {overlaps}")
+        out["save-hybrid"].update(saturated_scores_batch0=saturated,
+                                  gt_pairs_iou_above_0_6=overlaps)
+        del models, fwd, dets_k, dets_p
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def k2_library(x, w1, b1, w2, b2):
     """K2's function as the port computes it without the flag, on cuDNN:
     conv(+b1) -> SiLU -> conv(+b2) -> SiLU -> + x, NCHW channels_last. Its
@@ -451,7 +625,7 @@ def _gemm_cost(Mr, K, Nout, residual):
 
 
 def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
-    """Phase 5: kernel rows (per forward of the main paths) and end to end."""
+    """Phase 6: kernel rows (per forward of the main paths) and end to end."""
     from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
 
     gen = torch.Generator().manual_seed(2)
@@ -658,6 +832,20 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
     return rows, xrows
 
 
+def device_time(torch, fn) -> tuple[float, int]:
+    """Device ms and kernel launches of one call of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
 def profile_forward(torch, fn, label: str, runs: int = 2) -> None:
     """Device time of the forward by kind of operation (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -736,6 +924,9 @@ def main() -> int:
     legs, k2_launches = phase_bench(torch, device)
     launches.update(k2_launches)
     print(f"phase 4: {len(legs)} bench legs ran through the kernels")
+    eval_runs = phase_eval(torch, device)
+    print(f"phase 5: {sum(k != 'nms_batch' for k in eval_runs)} eval runs "
+          f"through the kernels")
     rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
                                stages, card)
 
@@ -747,6 +938,7 @@ def main() -> int:
                     "max_abs_err": worst[name], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"eval": eval_runs}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

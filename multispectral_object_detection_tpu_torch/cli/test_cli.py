@@ -1,0 +1,369 @@
+"""Evaluation CLI of the port, the counterpart of ``test.py``
+(multispectral_object_detection_tpu/cli/test_cli.py): the same flags and
+defaults, on the GPU.
+
+    python -m multispectral_object_detection_tpu_torch.cli.test_cli \\
+        --data data.yaml --weights <checkpoint dir or .pt> [...]
+
+Tasks: ``val`` (mAP on the val split; ``test`` takes the test split where
+the data names one), ``speed`` (forward + decode ms per image) and
+``study`` (mAP over image sizes, written to ``study_<cfg>.txt``; no plot).
+Weights are JAX checkpoint directories or ``.pt`` reference-layout state
+dicts (utils/checkpoint.py); several make an ensemble. ``--device``
+defaults to CUDA and fails without a GPU; ``--device cpu`` runs on the CPU.
+``run`` takes the parsed arguments, where ``data`` may also be a dict.
+
+Flags whose modules are not ported yet exit with a message naming the
+ROADMAP item that brings them: ``--compute-loss``, ``--plots``,
+``--data-parallel`` and ``--wandb``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+# flag -> why it stops here (the ROADMAP queue item that ports it)
+DEFERRED = {
+    "compute_loss": "--compute-loss needs the detection loss, which comes "
+                    "with the training path (ROADMAP queue 1, item 5)",
+    "plots": "--plots needs utils/plots.py (ROADMAP queue 1, item 7, the "
+             "long tail)",
+    "data_parallel": "--data-parallel comes with the parallel port "
+                     "(ROADMAP queue 1, item 6)",
+    "wandb": "--wandb needs utils/loggers.py (ROADMAP queue 1, item 7, the "
+             "long tail)",
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        "python -m multispectral_object_detection_tpu_torch.cli.test_cli")
+    ap.add_argument("--cfg", type=str, default="yolov5l_fusion_transformerx3")
+    ap.add_argument("--data", type=str, required=True)
+    ap.add_argument("--weights", type=str, required=True, nargs="+",
+                    help="checkpoint dir(s) or .pt state dict(s); several = "
+                         "an ensemble of members of one --cfg")
+    ap.add_argument("--ensemble-mode", type=str, default="cat",
+                    choices=["cat", "mean", "max", "ds", "ds-li", "ds-sun"],
+                    help="how ensemble members combine before NMS: cat, "
+                         "mean/max per anchor, ds* = Dempster-Shafer "
+                         "evidence fusion (ops/ds_fusion.py)")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--img-size", type=int, default=640)
+    ap.add_argument("--conf-thres", type=float, default=0.001)
+    ap.add_argument("--iou-thres", type=float, default=0.6)
+    ap.add_argument("--task", type=str, default="val",
+                    choices=["val", "test", "speed", "study"])
+    ap.add_argument("--augment", action="store_true",
+                    help="test-time augmentation: 3 scales + lr flip")
+    ap.add_argument("--single-cls", action="store_true")
+    ap.add_argument("--max-labels", type=int, default=300)
+    ap.add_argument("--save-json", type=str, default="")
+    ap.add_argument("--save-coco", type=str, default="",
+                    help="write COCO-format detection JSON and evaluate it "
+                         "by the COCO protocol")
+    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--wandb", action="store_true", help="not ported yet")
+    ap.add_argument("--entity", type=str, default=None, help="W&B entity")
+    ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--save-txt", action="store_true",
+                    help="write labels/<stem>.txt per image: cls and "
+                         "normalised xywh in native pixels")
+    ap.add_argument("--save-hybrid", action="store_true",
+                    help="inject the ground truth into NMS as "
+                         "unit-confidence candidates and save the hybrid "
+                         "label + prediction txts")
+    ap.add_argument("--save-conf", action="store_true",
+                    help="append the confidence to --save-txt lines")
+    ap.add_argument("--plots", action="store_true", help="not ported yet")
+    ap.add_argument("--project", type=str, default="runs/test")
+    ap.add_argument("--name", type=str, default="exp")
+    ap.add_argument("--exist-ok", action="store_true")
+    ap.add_argument("--no-rect", action="store_true",
+                    help="square letterbox instead of rect batches (pad 0.5)")
+    ap.add_argument("--compute-loss", action="store_true",
+                    help="not ported yet")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="keep live BatchNorm instead of conv-folded "
+                         "inference")
+    ap.add_argument("--int8", action="store_true",
+                    help="weights-only int8 inference: conv weights stored "
+                         "int8 + a per-channel scale (models/quantize.py)")
+    ap.add_argument("--device", type=str, default="",
+                    help="'' = cuda (fails without a GPU), 'cpu', 'cuda:N' "
+                         "or a CUDA index N")
+    ap.add_argument("--data-parallel", type=int, default=0,
+                    help="not ported yet")
+    return ap.parse_args(argv)
+
+
+def _device(arg: str) -> torch.device:
+    from ..utils.general import select_device
+
+    arg = (arg or "").strip()
+    return select_device(f"cuda:{arg}" if arg.isdigit() else (arg or None))
+
+
+def _load_data(data) -> dict:
+    if isinstance(data, dict):
+        return data
+    import yaml  # only for YAML paths
+
+    with open(data) as f:
+        return yaml.safe_load(f)
+
+
+def _check_flags(args) -> None:
+    for flag, msg in DEFERRED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"test_cli: {msg}")
+    if len(args.weights) > 1:
+        for on, flag in ((args.augment, "--augment"), (args.int8, "--int8")):
+            if on:
+                raise SystemExit(f"{flag} is single-checkpoint; drop it or "
+                                 f"pass one --weights")
+
+
+def build_forward(args, data: dict, device: torch.device):
+    """The member models and the forward the CLI runs."""
+    from ..hub import create
+    from ..train.eval_forward import (make_eval_forward,
+                                      make_eval_forward_ensemble,
+                                      make_eval_forward_tta)
+
+    nc = 1 if args.single_cls else int(data["nc"])
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    if args.cfg.endswith((".yaml", ".yml")):
+        cfg = args.cfg
+    else:
+        from ..models.configs import get_config
+
+        cfg = get_config(args.cfg, nc=nc)
+    models = [create(cfg, nc, weights=w, dtype=dtype, device=device,
+                     fuse=not args.no_fuse, int8=args.int8)
+              for w in args.weights]
+    if len(models) > 1:
+        logger.info(f"ensemble of {len(models)} checkpoints "
+                    f"(mode={args.ensemble_mode})")
+        return models, make_eval_forward_ensemble(models, args.ensemble_mode)
+    if args.augment:
+        return models, make_eval_forward_tta(models[0])
+    return models, make_eval_forward(models[0])
+
+
+def make_loader(args, data: dict, img_size: int, nc: int):
+    from ..data.datasets import BatchLoader, PairedDetectionDataset
+
+    two_stream = "val_ir" in data
+    split = "test" if args.task == "test" and "test_rgb" in data else "val"
+    ds = PairedDetectionDataset.from_sources(
+        data[f"{split}_rgb"] if two_stream else data[split],
+        data.get(f"{split}_ir"), img_size=img_size,
+        nc=None if args.single_cls else nc, rect=not args.no_rect, pad=0.5)
+    if args.single_cls:
+        for lab in ds.labels:
+            if len(lab):
+                lab[:, 0] = 0
+    return ds, BatchLoader(ds, args.batch_size, max_labels=args.max_labels)
+
+
+def run(args) -> dict:
+    """Evaluate; returns the result dict (``speed``: {"ms_per_image"};
+    ``study``: {size: {"map50", "map"}})."""
+    from ..train.evaluator import evaluate
+    from ..utils.general import check_img_size, increment_path
+
+    _check_flags(args)
+    device = _device(args.device)
+    if args.task == "study":
+        return study_task(args)
+    data = _load_data(args.data)
+    img_size = check_img_size(args.img_size, 32)
+    nc = 1 if args.single_cls else int(data["nc"])
+    _, fwd = build_forward(args, data, device)
+    ds, loader = make_loader(args, data, img_size, nc)
+    if args.task == "speed":
+        return speed_task(fwd, loader, device)
+
+    coco = _save_coco_json(fwd, loader, ds, args, device) \
+        if args.save_coco else None
+    names = data.get("names", [str(i) for i in range(nc)])
+    per_image = None
+    if args.save_txt or args.save_hybrid:
+        save_dir = increment_path(Path(args.project) / args.name,
+                                  exist_ok=args.exist_ok)
+        (save_dir / "labels").mkdir(parents=True, exist_ok=True)
+
+        def per_image(idx, boxes, scores, classes, native_hw):
+            # native xyxy -> normalised xywh lines
+            h0, w0 = native_hw
+            stem = Path(ds.rgb_files[idx]).stem
+            lines = []
+            for b, s, c in zip(boxes, scores, classes):
+                row = [int(c), (b[0] + b[2]) / 2 / w0, (b[1] + b[3]) / 2 / h0,
+                       (b[2] - b[0]) / w0, (b[3] - b[1]) / h0]
+                row += [s] if args.save_conf else []
+                lines.append(" ".join(str(v) if isinstance(v, int)
+                                      else f"{v:.6g}" for v in row))
+            (save_dir / "labels" / f"{stem}.txt").write_text(
+                "\n".join(lines) + ("\n" if lines else ""))
+
+    res = evaluate(fwd, loader, nc=nc, device=device,
+                   conf_thres=args.conf_thres, iou_thres=args.iou_thres,
+                   single_cls=args.single_cls, hybrid=args.save_hybrid,
+                   per_image=per_image)
+    if coco is not None:
+        res["coco"] = coco
+    if "lamr" in res:
+        logger.info(f"log-average miss rate: {res['lamr']:.4f}")
+    logger.info(f"{'class':>12} {'P':>8} {'R':>8} {'mAP50':>8} "
+                f"{'mAP75':>8} {'mAP':>8}")
+    logger.info(f"{'all':>12} {res['mp']:8.3f} {res['mr']:8.3f} "
+                f"{res['map50']:8.3f} {res['map75']:8.3f} {res['map']:8.3f}")
+    if args.verbose:
+        for c, d in res.get("per_class", {}).items():
+            nm = names[c] if c < len(names) else str(c)
+            logger.info(f"{nm:>12} {d['p']:8.3f} {d['r']:8.3f} "
+                        f"{d['ap50']:8.3f} {d['ap75']:8.3f} {d['ap']:8.3f}")
+    logger.info(f"speed: {res['t_infer_ms']:.2f} ms infer, "
+                f"{res['t_nms_ms']:.2f} ms NMS, {res['t_match_ms']:.2f} ms "
+                f"matching per image")
+    if args.save_json:
+        Path(args.save_json).write_text(json.dumps(
+            {k: v for k, v in res.items()
+             if isinstance(v, (int, float, dict))},
+            indent=1, default=float))
+    return res
+
+
+def study_task(args) -> dict:
+    """mAP over image sizes 256-640; rows [size, P, R, mAP50, mAP,
+    infer ms, NMS ms] go to <project>/<name>/study_<cfg>.txt."""
+    from ..utils.general import increment_path
+
+    results, rows = {}, []
+    for sz in (256, 320, 384, 448, 512, 640):
+        sub = argparse.Namespace(**vars(args))
+        sub.img_size, sub.task = sz, "val"
+        sub.save_txt = sub.save_hybrid = False
+        sub.save_json = sub.save_coco = ""
+        r = run(sub)
+        results[sz] = {"map50": r["map50"], "map": r["map"]}
+        rows.append([sz, r["mp"], r["mr"], r["map50"], r["map"],
+                     r["t_infer_ms"], r["t_nms_ms"]])
+        logger.info(f"study @{sz}: mAP50 {r['map50']:.3f}")
+    save_dir = increment_path(Path(args.project) / args.name,
+                              exist_ok=args.exist_ok)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    sf = save_dir / f"study_{Path(str(args.cfg)).stem}.txt"
+    np.savetxt(sf, np.asarray(rows), fmt="%.5g")
+    logger.info(f"study results -> {sf}")
+    return results
+
+
+def _save_coco_json(fwd, loader, ds, args, device) -> dict:
+    """COCO detection records [{image_id, category_id, bbox, score}, ...]
+    (bbox xywh from the top-left corner, native pixels) written to
+    ``--save-coco``, and their COCO-protocol evaluation against the
+    labels."""
+    from ..ops.nms import batched_nms
+    from ..utils.cocoeval import coco_eval_bbox
+    from ..utils.general import coco80_to_coco91_class, rescale_to_native
+
+    is_coco = "coco" in str(args.data).lower()
+    c91 = coco80_to_coco91_class()
+    jdict, gt_records = [], []
+    img_i = 0
+    for batch in loader:
+        rgb = torch.from_numpy(batch["rgb"]).to(device)
+        ir = torch.from_numpy(batch["ir"]).to(device) if "ir" in batch \
+            else rgb
+        dets_flat, _ = fwd(rgb, ir)
+        det = batched_nms(dets_flat, conf_thres=args.conf_thres,
+                          iou_thres=args.iou_thres,
+                          multi_label=not args.single_cls,
+                          agnostic=args.single_cls)
+        boxes_b, scores_b, classes_b, valid_b = (t.cpu().numpy() for t in det)
+        H, W = rgb.shape[1:3]
+        for si in range(rgb.shape[0]):
+            stem = Path(ds.rgb_files[img_i]).stem
+            image_id = int(stem) if stem.isnumeric() else stem
+            v = valid_b[si]
+            boxes = boxes_b[si][v]
+            native_hw, ratio_pad = batch["shapes"][si]
+            if len(boxes):
+                boxes = rescale_to_native(boxes, (H, W), native_hw, ratio_pad)
+            for b, s, c in zip(boxes, scores_b[si][v], classes_b[si][v]):
+                jdict.append({
+                    "image_id": image_id,
+                    "category_id": c91[int(c)] if is_coco else int(c),
+                    "bbox": [round(float(b[0]), 3), round(float(b[1]), 3),
+                             round(float(b[2] - b[0]), 3),
+                             round(float(b[3] - b[1]), 3)],
+                    "score": round(float(s), 5)})
+            h0, w0 = native_hw
+            for row in np.asarray(ds.labels[img_i], np.float32).reshape(-1, 5):
+                cls_i = int(row[0])
+                gt_records.append({
+                    "image_id": image_id,
+                    "category_id": c91[cls_i] if is_coco else cls_i,
+                    "bbox": [float((row[1] - row[3] / 2) * w0),
+                             float((row[2] - row[4] / 2) * h0),
+                             float(row[3] * w0), float(row[4] * h0)]})
+            img_i += 1
+    Path(args.save_coco).write_text(json.dumps(jdict))
+    logger.info(f"wrote {len(jdict)} COCO records -> {args.save_coco}")
+    coco = coco_eval_bbox(gt_records, jdict)
+    logger.info(f"COCO-protocol bbox eval: AP {coco['AP']:.4f}  AP50 "
+                f"{coco['AP50']:.4f}  AP75 {coco['AP75']:.4f}")
+    return coco
+
+
+def speed_task(fwd, loader, device: torch.device) -> dict:
+    """Forward + decode ms per image on the first batch: 20 runs after 3,
+    synchronised."""
+    batch = next(iter(loader))
+    rgb = torch.from_numpy(batch["rgb"]).to(device)
+    ir = torch.from_numpy(batch["ir"]).to(device) if "ir" in batch else rgb
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(3):
+        fwd(rgb, ir)
+    sync()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fwd(rgb, ir)
+    sync()
+    dt = (time.perf_counter() - t0) / n / rgb.shape[0] * 1000
+    logger.info(f"forward+decode: {dt:.2f} ms/image @ bs{rgb.shape[0]}")
+    return {"ms_per_image": dt}
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(format="%(message)s", level=logging.INFO)
+    args = parse_args(argv)
+    try:
+        _device(args.device)
+    except RuntimeError as e:
+        print(f"test_cli: {e}", file=sys.stderr)
+        return 1
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,442 @@
+"""Evaluation datasets and batches for paired RGB+IR (or single) detection.
+
+The port's counterpart of the evaluation part of
+multispectral_object_detection_tpu/data/datasets.py; its batches equal the
+JAX loader's byte for byte (``rgb``, ``ir``, ``targets``, ``tmask``,
+``shapes``):
+
+- image lists from a directory, a glob-free listing file or one file;
+  labels from ``images/`` -> ``labels/`` txt files of the RGB side;
+- a corrupt-tolerant scan: image header (``.png`` through
+  ``data/imageio``, other formats through PIL with the EXIF rotation),
+  size >= 10 px, label validation; bad pairs are skipped with a warning;
+- an optional ``.npz`` scan cache keyed by paths, file sizes and ``nc``
+  (the JAX package's key leaves ``nc`` out, so a cache written with
+  another ``nc`` is taken there without its class check);
+- letterboxed samples, square or in aspect-ratio buckets (``rect``, pad
+  0.5 in the evaluation protocol), and static-shape collation: targets
+  padded to ``max_labels`` per image with a validity mask;
+- ``BatchLoader``: batches in order, assembled one ahead on a thread.
+
+Mosaic, affine and HSV augmentation, shuffling and quad collation wait for
+the training slice.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import queue
+import struct
+import threading
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .augment import letterbox, load_scaled, load_scaled_pair
+from .imageio import PNG_SIGNATURE, png_size
+
+logger = logging.getLogger(__name__)
+
+IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
+IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp",
+               "mpo"}
+_EXIF_ORIENTATION = 274
+STRIDE = 32  # the detector's largest stride: rect canvases are multiples
+
+
+def list_images(source: str) -> List[str]:
+    """Expand a directory (recursively, sorted), a ``.txt`` listing (paths
+    relative to its folder) or one image file into image paths."""
+    p = Path(source)
+    if p.is_dir():
+        files = sorted(str(f) for f in p.rglob("*")
+                       if f.suffix.lower() in IMG_EXTS)
+    elif p.is_file() and p.suffix == ".txt":
+        files = []
+        for line in p.read_text().splitlines():
+            line = line.strip()
+            if line:
+                q = Path(line)
+                files.append(str(q if q.is_absolute() else p.parent / q))
+    elif p.is_file():
+        files = [str(p)]
+    else:
+        raise FileNotFoundError(f"dataset source not found: {source}")
+    if not files:
+        raise FileNotFoundError(f"no images under {source}")
+    return files
+
+
+def image_to_label_path(img_path: str) -> str:
+    """.../images/x.ext -> .../labels/x.txt (the last ``images`` folder)."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    parts = img_path.rsplit(sa, 1)
+    stem = sb.join(parts) if len(parts) == 2 else img_path
+    return os.path.splitext(stem)[0] + ".txt"
+
+
+def segments2boxes(segments) -> np.ndarray:
+    """Polygons [(n_i, 2) xy] -> (N, 4) xywh boxes around them."""
+    if not len(segments):
+        return np.zeros((0, 4), dtype=np.float32)
+    b = np.array([[s[:, 0].min(), s[:, 1].min(), s[:, 0].max(),
+                   s[:, 1].max()] for s in segments], dtype=np.float32)
+    return np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                     b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], axis=-1)
+
+
+def read_label_file(path: str, nc: Optional[int] = None) -> np.ndarray:
+    """YOLO txt -> (n, 5) float32 [cls, x, y, w, h] normalised.
+
+    Rows of more than 8 columns switch the file to polygon format: each
+    row's points become their bounding box. Raises on negative values,
+    coordinates above 1, duplicate rows or a class >= ``nc``."""
+    lab = np.zeros((0, 5), dtype=np.float32)
+    if not os.path.isfile(path):
+        return lab
+    rows = [ln.split() for ln in Path(path).read_text().strip().splitlines()
+            if ln.strip()]
+    if any(len(r) > 8 for r in rows):
+        classes = np.array([r[0] for r in rows], dtype=np.float32)
+        segments = [np.array(r[1:], dtype=np.float32).reshape(-1, 2)
+                    for r in rows]
+        lab = np.concatenate((classes.reshape(-1, 1),
+                              segments2boxes(segments)), 1)
+    elif rows:
+        if not all(len(r) == 5 for r in rows):
+            raise ValueError(f"labels require 5 columns each: {path}")
+        lab = np.asarray(rows, dtype=np.float32)
+    if len(lab):
+        if not (lab >= 0).all():
+            raise ValueError(f"negative label values in {path}")
+        if not (lab[:, 1:] <= 1).all():
+            raise ValueError(f"non-normalized coordinates in {path}")
+        if np.unique(lab, axis=0).shape[0] != lab.shape[0]:
+            raise ValueError(f"duplicate labels in {path}")
+        if nc is not None and not (lab[:, 0] < nc).all():
+            raise ValueError(f"label class exceeds nc={nc} in {path}")
+    return lab
+
+
+def image_size(path: str):
+    """(width, height, format) of an image file, checked for integrity:
+    PNG by its own header and chunk CRCs, other formats by PIL's verify,
+    with the EXIF rotation applied to the size."""
+    with open(path, "rb") as f:
+        png = f.read(8) == PNG_SIGNATURE
+    if png:
+        return png_size(path) + ("png",)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(f"{path}: checking a non-PNG image needs Pillow, "
+                          f"which is not installed") from None
+    with Image.open(path) as im:
+        im.verify()
+        w, h = im.size
+        try:
+            if dict(im._getexif().items()).get(_EXIF_ORIENTATION) in (6, 8):
+                w, h = h, w
+        except (AttributeError, KeyError, IndexError, TypeError):
+            pass  # no EXIF, or none that PIL reads
+        return w, h, (im.format or "").lower()
+
+
+def scan_dataset(img_files: Sequence[str],
+                 label_files: Optional[Sequence[str]] = None,
+                 nc: Optional[int] = None, *,
+                 with_labels: bool = True) -> dict:
+    """Check every image and parse its labels, warning about and skipping
+    corrupt entries. Returns ``keep`` (n,) bool, ``labels`` (a list over
+    all entries, empty where dropped), ``shapes`` (n, 2) float64 original
+    (h, w) and ``counters``."""
+    if with_labels and label_files is None:
+        label_files = [image_to_label_path(p) for p in img_files]
+    n = len(img_files)
+    keep = np.zeros(n, dtype=bool)
+    labels: List[np.ndarray] = []
+    shapes = np.zeros((n, 2), dtype=np.float64)
+    nf = nm = ne = ncorr = 0
+    for i, im_file in enumerate(img_files):
+        lab = np.zeros((0, 5), dtype=np.float32)
+        try:
+            w, h, fmt = image_size(im_file)
+            if not (w > 9 and h > 9):
+                raise ValueError(f"image size {(w, h)} <10 pixels")
+            if fmt not in IMG_FORMATS:
+                raise ValueError(f"invalid image format {fmt}")
+            if with_labels:
+                if os.path.isfile(label_files[i]):
+                    nf += 1
+                    lab = read_label_file(label_files[i], nc)
+                    ne += not len(lab)
+                else:
+                    nm += 1
+            keep[i] = True
+            shapes[i] = (h, w)
+        except (OSError, ValueError, SyntaxError, struct.error) as e:
+            # SyntaxError: what PIL raises for some damaged files
+            ncorr += 1
+            lab = np.zeros((0, 5), dtype=np.float32)
+            logger.warning(f"ignoring corrupt image and/or label {im_file}: "
+                           f"{e}")
+        labels.append(lab)
+    counters = {"found": nf, "missing": nm, "empty": ne, "corrupt": ncorr}
+    return {"keep": keep, "labels": labels, "shapes": shapes,
+            "counters": counters}
+
+
+def _files_hash(paths: Sequence[str], extra: str = "") -> str:
+    h = hashlib.md5()
+    for p in paths:
+        h.update(p.encode())
+        try:
+            h.update(str(os.path.getsize(p)).encode())
+        except OSError:
+            pass
+    h.update(extra.encode())
+    return h.hexdigest()
+
+
+def _log_scan(c: dict, total: int, cached: bool) -> None:
+    msg = (f"dataset scan{' (cached)' if cached else ''}: {c['found']} found, "
+           f"{c['missing']} missing, {c['empty']} empty, {c['corrupt']} "
+           f"corrupt of {total} images")
+    (logger.warning if c["corrupt"] else logger.info)(msg)
+
+
+def scan_pair_cached(rgb_files: Sequence[str],
+                     ir_files: Optional[Sequence[str]] = None,
+                     cache_dir: Optional[str] = None,
+                     nc: Optional[int] = None) -> dict:
+    """``scan_dataset`` over RGB(+IR) pairs, labels from the RGB side; a
+    pair is dropped when either image is corrupt. With ``cache_dir`` the
+    result is kept in an ``.npz`` keyed by an md5 of the paths, the file
+    sizes and ``nc``."""
+    label_files = [image_to_label_path(p) for p in rgb_files]
+    key = _files_hash(list(rgb_files) + label_files + list(ir_files or []),
+                      extra=f"nc={nc}")
+    cache_path = None
+    if cache_dir:
+        cache_path = Path(cache_dir) / f"scan_{key[:16]}.npz"
+        if cache_path.is_file():
+            z = np.load(cache_path, allow_pickle=True)
+            if str(z.get("hash")) == key:
+                res = {"keep": z["keep"], "labels": list(z["labels"]),
+                       "shapes": z["shapes"],
+                       "counters": json.loads(str(z["counters"]))}
+                _log_scan(res["counters"], len(rgb_files), cached=True)
+                return res
+    res = scan_dataset(rgb_files, label_files, nc)
+    if ir_files is not None:
+        ir_scan = scan_dataset(ir_files, with_labels=False)
+        res["keep"] &= ir_scan["keep"]
+        res["counters"]["corrupt"] += int(ir_scan["counters"]["corrupt"])
+    _log_scan(res["counters"], len(rgb_files), cached=False)
+    if cache_path is not None:
+        cache_path.parent.mkdir(parents=True, exist_ok=True)
+        lab_arr = np.empty(len(res["labels"]), dtype=object)
+        for i, lab in enumerate(res["labels"]):
+            lab_arr[i] = lab
+        np.savez(cache_path, hash=key, keep=res["keep"], labels=lab_arr,
+                 shapes=res["shapes"],
+                 counters=json.dumps(res["counters"]))
+    return res
+
+
+class PairedDetectionDataset:
+    """Paired RGB+IR (or RGB only, ``ir_files`` None) evaluation images.
+
+    ``get(i)`` returns (rgb (h, w, 3) uint8, ir or None, labels (n, 5)
+    [cls, x, y, w, h] normalised to the letterboxed canvas, shape_info
+    ((h0, w0), ((rw, rh), (dw, dh))) for the rescale to native pixels)."""
+
+    def __init__(self, rgb_files: Sequence[str],
+                 ir_files: Optional[Sequence[str]] = None, *,
+                 img_size: int = 640, nc: Optional[int] = None,
+                 cache_dir: Optional[str] = None, pad: float = 0.0,
+                 rect: bool = False):
+        self.rgb_files = list(rgb_files)
+        self.ir_files = list(ir_files) if ir_files is not None else None
+        if self.ir_files is not None and \
+                len(self.ir_files) != len(self.rgb_files):
+            raise ValueError("RGB/IR list length mismatch")
+        self.img_size = img_size
+        scan = scan_pair_cached(self.rgb_files, self.ir_files, cache_dir, nc)
+        kept = [i for i in range(len(self.rgb_files)) if scan["keep"][i]]
+        if not kept:
+            raise ValueError("dataset scan dropped every image as corrupt")
+        self.rgb_files = [self.rgb_files[i] for i in kept]
+        if self.ir_files is not None:
+            self.ir_files = [self.ir_files[i] for i in kept]
+        self.labels = [scan["labels"][i] for i in kept]
+        self.shapes = scan["shapes"][kept]
+        self.scan_counters = scan["counters"]
+        self.pad = pad
+        self.rect = bool(rect)
+        self.rect_order = None   # image order sorted by aspect ratio
+        self.rect_shape = None   # index -> its batch's (h, w) canvas
+        if self.rect:
+            self._setup_rect()
+
+    def _setup_rect(self, batch_size: int = 32) -> None:
+        """Aspect-ratio buckets: images sorted by h/w; each batch's canvas
+        is the smallest stride multiple (plus ``pad`` strides) that covers
+        its range of aspect ratios."""
+        s = np.asarray(self.shapes, dtype=np.float64)
+        ar = s[:, 0] / s[:, 1]
+        order = np.argsort(ar)
+        nb = -(-len(order) // batch_size)
+        shapes = np.ones((nb, 2))
+        for b in range(nb):
+            ari = ar[order[b * batch_size:(b + 1) * batch_size]]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                shapes[b] = [maxi, 1.0]
+            elif mini > 1:
+                shapes[b] = [1.0, 1.0 / mini]
+        canvas = np.ceil(shapes * self.img_size / STRIDE
+                         + self.pad).astype(int) * STRIDE
+        self.rect_order = order
+        self.rect_shape = {
+            int(i): (int(canvas[b, 0]), int(canvas[b, 1]))
+            for b in range(nb)
+            for i in order[b * batch_size:(b + 1) * batch_size]}
+
+    def __len__(self):
+        return len(self.rgb_files)
+
+    @classmethod
+    def from_sources(cls, rgb_source: str, ir_source: Optional[str] = None,
+                     **kw) -> "PairedDetectionDataset":
+        rgb = list_images(rgb_source)
+        ir = list_images(ir_source) if ir_source else None
+        if ir is not None and len(ir) != len(rgb):
+            raise ValueError(f"paired datasets must align: {len(rgb)} RGB "
+                             f"vs {len(ir)} IR")
+        return cls(rgb, ir, **kw)
+
+    def _load_pair(self, i: int):
+        if self.ir_files is None:
+            rgb, hw0 = load_scaled(self.rgb_files[i], self.img_size)
+            return rgb, rgb, hw0
+        return load_scaled_pair(self.rgb_files[i], self.ir_files[i],
+                                self.img_size)
+
+    def get(self, i: int):
+        rgb0, ir0, hw0 = self._load_pair(i)
+        lab = self.labels[i]
+        h, w = rgb0.shape[:2]
+        canvas = self.rect_shape[int(i)] if self.rect else \
+            (self.img_size, self.img_size)
+        # evaluation never scales an image up (the JAX package's
+        # scaleup_eval, off in its CLI)
+        rgb, ratio, padwh = letterbox(rgb0, canvas, scaleup=False)
+        ir, _, _ = letterbox(ir0, canvas, scaleup=False)
+        lab_xyxy = lab.copy()
+        if lab.size:
+            lab_xyxy[:, 1] = ratio[0] * w * (lab[:, 1] - lab[:, 3] / 2) + padwh[0]
+            lab_xyxy[:, 2] = ratio[1] * h * (lab[:, 2] - lab[:, 4] / 2) + padwh[1]
+            lab_xyxy[:, 3] = ratio[0] * w * (lab[:, 1] + lab[:, 3] / 2) + padwh[0]
+            lab_xyxy[:, 4] = ratio[1] * h * (lab[:, 2] + lab[:, 4] / 2) + padwh[1]
+        hh, ww = rgb.shape[:2]
+        labels = np.zeros((len(lab_xyxy), 5), dtype=np.float32)
+        if len(lab_xyxy):
+            labels[:, 0] = lab_xyxy[:, 0]
+            labels[:, 1] = ((lab_xyxy[:, 1] + lab_xyxy[:, 3]) / 2) / ww
+            labels[:, 2] = ((lab_xyxy[:, 2] + lab_xyxy[:, 4]) / 2) / hh
+            labels[:, 3] = (lab_xyxy[:, 3] - lab_xyxy[:, 1]) / ww
+            labels[:, 4] = (lab_xyxy[:, 4] - lab_xyxy[:, 2]) / hh
+        return (rgb, ir if self.ir_files is not None else None, labels,
+                (hw0, (ratio, padwh)))
+
+
+def collate_batch(samples, max_labels: int = 120) -> dict:
+    """Stack samples into static shapes: ``rgb`` (B, h, w, 3) uint8,
+    ``ir`` likewise (absent for single-stream data), ``targets``
+    (B * max_labels, 6) [img, cls, x, y, w, h], ``tmask`` (B *
+    max_labels,) float32 and ``shapes`` (the samples' shape_info)."""
+    rgbs, irs, ts, ms, shapes = [], [], [], [], []
+    for bi, (rgb, ir, labels, shape_info) in enumerate(samples):
+        rgbs.append(rgb)
+        if ir is not None:
+            irs.append(ir)
+        t = np.zeros((max_labels, 6), dtype=np.float32)
+        n = min(len(labels), max_labels)
+        if n:
+            t[:n, 0] = bi
+            t[:n, 1:] = labels[:n]
+        m = np.zeros((max_labels,), dtype=np.float32)
+        m[:n] = 1.0
+        ts.append(t)
+        ms.append(m)
+        shapes.append(shape_info)
+    out = {"rgb": np.stack(rgbs), "targets": np.concatenate(ts, 0),
+           "tmask": np.concatenate(ms, 0), "shapes": shapes}
+    if irs:
+        out["ir"] = np.stack(irs)
+    return out
+
+
+class BatchLoader:
+    """All batches of a dataset in order (rect datasets: in aspect-ratio
+    order; the last batch may be short), each assembled while the previous
+    one is consumed."""
+
+    def __init__(self, dataset: PairedDetectionDataset, batch_size: int, *,
+                 max_labels: int = 120):
+        self.ds = dataset
+        self.bs = batch_size
+        self.max_labels = max_labels
+        if dataset.rect:
+            dataset._setup_rect(batch_size)  # buckets follow the batches
+
+    def __len__(self):
+        return -(-len(self.ds) // self.bs)
+
+    def _batches(self):
+        idx = (np.asarray(self.ds.rect_order) if self.ds.rect
+               else np.arange(len(self.ds)))
+        return [idx[k * self.bs:(k + 1) * self.bs] for k in range(len(self))]
+
+    def _assemble(self, batch_idx) -> dict:
+        return collate_batch([self.ds.get(int(i)) for i in batch_idx],
+                             self.max_labels)
+
+    def __iter__(self):
+        batches = self._batches()
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for b in batches:
+                    if stop.is_set():
+                        return
+                    q.put(("batch", self._assemble(b)))
+                q.put(("end", None))
+            except BaseException as e:  # handed to the consumer, re-raised
+                q.put(("error", e))
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "end":
+                    return
+                if kind == "error":
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while t.is_alive():  # unblock a worker waiting on a full queue
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            t.join()

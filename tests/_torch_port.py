@@ -1,7 +1,27 @@
 """Helpers shared by the PyTorch port's parity tests (tests/test_torch_*.py)."""
 
+import functools
+import os
+
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def share_torch_threads():
+    """Under pytest-xdist, a share of the machine's intra-op threads for a
+    test module's torch CPU work (import this fixture into the module):
+    one thread each at 6 workers on 8 cores. With more threads than cores
+    across the worker processes, OpenMP's waiting threads slow torch's CPU
+    kernels by orders of magnitude (on 8 cores, a CLI test of this suite
+    took 4 s alone and 160 s beside one other process running 8 threads).
+    A single process keeps its threads."""
+    n = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, n // workers))
+    yield
+    torch.set_num_threads(n)
 
 
 def random_state_dict(module: torch.nn.Module, seed: int) -> dict:
@@ -38,3 +58,59 @@ def to_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).detach().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fold():
+    """The JAX package's BN folding as one compiled function (made once, so
+    every seed's same-shaped tree reuses its compilation)."""
+    import jax
+
+    from multispectral_object_detection_tpu.models.model import (
+        fuse_conv_bn_params)
+
+    return jax.jit(fuse_conv_bn_params)
+
+
+@functools.lru_cache(maxsize=None)
+def mini_weights(seed: int) -> dict:
+    """The n-scale two-stream CFT model (nc=2) with ``random_state_dict``
+    weights from ``seed``, built once per process for every test module
+    that uses it: ``cfg``, the reference-layout state dict ``sd``, the
+    JAX trees ``params``/``stats`` and the BN-folded JAX ``fparams`` (one
+    compiled program). Callers must not modify them."""
+    from multispectral_object_detection_tpu.utils.torch_import import (
+        convert_state_dict)
+    from multispectral_object_detection_tpu_torch.models import configs
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model)
+
+    cfg = configs.yolov5_two_stream("n", nc=2, fusion="transformerx3")
+    sd = random_state_dict(build_model(cfg), seed)
+    params, stats = convert_state_dict(sd)
+    return dict(cfg=cfg, sd=sd, params=params, stats=stats,
+                fparams=_jax_fold()(params, stats))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fused_forward():
+    """The JAX package's eval forward of the ``mini_weights`` model, BN
+    folded, with the Pallas CFT stack (interpret mode on the CPU):
+    (fparams, rgb, ir uint8 NHWC) -> (raw head outputs, decoded
+    detections), inputs / 255 as its ``make_eval_forward`` does. One
+    compilation per input shape for every test module that calls it."""
+    import jax
+    import jax.numpy as jnp
+
+    from multispectral_object_detection_tpu.models import build_model
+
+    model = build_model(mini_weights(0)["cfg"], fused=True, use_pallas=True)
+
+    @jax.jit
+    def fwd(fparams, rgb, ir):
+        x, x2 = (a.astype(jnp.float32) / 255.0 for a in (rgb, ir))
+        raw = model.apply({"params": fparams, "batch_stats": {}}, x, x2,
+                          train=False)
+        return raw, model.decode(raw)
+
+    return fwd

@@ -13,6 +13,7 @@ import torch
 
 from multispectral_object_detection_tpu_torch import bench
 from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+from tests._torch_port import share_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULE = "multispectral_object_detection_tpu_torch.bench"

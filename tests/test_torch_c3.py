@@ -15,8 +15,6 @@ from multispectral_object_detection_tpu.models import build_model as jax_build
 from multispectral_object_detection_tpu.models import layers as jlayers
 from multispectral_object_detection_tpu.models.model import (
     fuse_conv_bn as jax_fuse_conv_bn)
-from multispectral_object_detection_tpu.models.model import (
-    fuse_conv_bn_params)
 from multispectral_object_detection_tpu.models.quantize import (
     dequantize_int8)
 from multispectral_object_detection_tpu.models.quantize import (
@@ -41,7 +39,9 @@ from multispectral_object_detection_tpu_torch.ops.cft_stack import (
 from multispectral_object_detection_tpu_torch.train.tta import tta_forward
 from multispectral_object_detection_tpu_torch.utils.jax_import import (
     state_dict_from_jax)
-from tests._torch_port import load, random_state_dict, to_nchw, to_nhwc
+from tests._torch_port import (  # noqa: F401
+    load, mini_weights, random_state_dict, share_torch_threads, to_nchw,
+    to_nhwc)
 
 SHAPES = [(2, 16, 16, 64), (1, 10, 14, 64), (1, 8, 8, 128)]
 
@@ -249,15 +249,14 @@ IMG, NC = 64, 2
 def mini():
     """JAX weights (unfused and BN-folded) of the n-scale two-stream CFT
     model, and a uint8 batch at 64 px and at 96 px."""
-    cfg = configs.yolov5_two_stream("n", nc=NC, fusion="transformerx3")
-    sd = random_state_dict(build_model(cfg), seed=0)
-    params, stats = convert_state_dict(sd)
+    w = mini_weights(0)
+    assert w["cfg"] == configs.yolov5_two_stream("n", nc=NC,
+                                                 fusion="transformerx3")
     rng = np.random.default_rng(1)
     ims = {s: [rng.integers(0, 256, (2, s, s, 3), dtype=np.uint8)
                for _ in range(2)] for s in (IMG, 96)}
-    return dict(cfg=cfg, params=params, stats=stats,
-                fparams=fuse_conv_bn_params(params, stats), ims=ims,
-                spec=jax_build(cfg).spec)
+    return dict(cfg=w["cfg"], params=w["params"], stats=w["stats"],
+                fparams=w["fparams"], ims=ims, spec=jax_build(w["cfg"]).spec)
 
 
 def _port_fused(mini, **kw):
@@ -309,7 +308,14 @@ def _port_convs(model):
             if isinstance(m, torch.nn.Conv2d)}
 
 
-def test_int8_weights_match_jax_bit_for_bit(mini):
+@pytest.fixture(scope="module")
+def jax_int8(mini):
+    """The JAX package's int8 tree of the fused weights (quantized op by
+    op, as the bit-for-bit test pins it; computed once for the module)."""
+    return jax_quantize_int8(mini["fparams"])
+
+
+def test_int8_weights_match_jax_bit_for_bit(mini, jax_int8):
     """q of every conv weight equals the JAX q of the same fused weights
     (HWIO -> OIHW), and the bf16 dequantized weights are identical."""
     model = _port_fused(mini)
@@ -319,9 +325,11 @@ def test_int8_weights_match_jax_bit_for_bit(mini):
         for key, conv in convs.items():
             conv.weight.copy_(torch.from_numpy(sd[key]))
     quantize_int8(model)
-    qparams = jax_quantize_int8(mini["fparams"])
+    qparams = jax_int8
     q = state_dict_from_jax(_jax_q_tree(qparams, lambda x: x["q"]))
-    deq = state_dict_from_jax(dequantize_int8(qparams, jnp.bfloat16))
+    # one program (its results are bit-identical to op by op here)
+    deq = state_dict_from_jax(jax.jit(
+        lambda t: dequantize_int8(t, jnp.bfloat16))(qparams))
     assert len(convs) > 50
     for key, conv in convs.items():
         assert conv.weight_q.dtype == torch.int8 and "weight" not in dict(
@@ -333,7 +341,7 @@ def test_int8_weights_match_jax_bit_for_bit(mini):
             np.asarray(deq[key], np.float32), err_msg=key)
 
 
-def test_int8_mini_model_matches_jax_dequantized_apply(mini):
+def test_int8_mini_model_matches_jax_dequantized_apply(mini, jax_int8):
     model = _port_fused(mini, use_c3_kernel=True)
     fp32_bytes = quantized_bytes(model)
     n_conv = sum(c.weight.numel() for c in _port_convs(model).values())
@@ -344,10 +352,9 @@ def test_int8_mini_model_matches_jax_dequantized_apply(mini):
                if isinstance(m, L.Bottleneck))  # K2 reads the int8 weights
     jx, tx = _inputs(mini, IMG)
     jmodel = jax_build(mini["spec"], fused=True, use_pallas=True)
-    qparams = jax_quantize_int8(mini["fparams"])
     want = jax.jit(lambda p: jmodel.apply(
         {"params": dequantize_int8(p, jnp.float32), "batch_stats": {}},
-        *jx, train=False))(qparams)
+        *jx, train=False))(jax_int8)
     with torch.no_grad():
         got = model(*tx)
     _assert_raw_close(got, want)

@@ -14,6 +14,12 @@ from multispectral_object_detection_tpu_torch.models.configs import (
 from multispectral_object_detection_tpu_torch.models.parser import (
     parse_model_config)
 from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+from tests._torch_port import share_torch_threads  # noqa: F401
+
+# the JAX twin as one compiled program per shape (op by op it compiles each
+# of its operations apart, several times slower)
+_stack_reference = jax.jit(pf.fused_cft_stack_reference,
+                           static_argnames="num_heads")
 
 
 def _inputs(B, C, L, seed):
@@ -48,7 +54,7 @@ def test_stack_plain_matches_jax_reference(B, C, L):
     x, ws = _inputs(B, C, L, seed=C + L)
     t, j = _cast(x, ws, torch.float32, jnp.float32)
     got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
-    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    want = np.asarray(_stack_reference(*j, num_heads=8))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
@@ -67,7 +73,7 @@ def test_stack_bf16_rounding_points_match_jax_reference():
     x, ws = _inputs(2, 64, 2, seed=2)
     t, j = _cast(x, ws, torch.bfloat16, jnp.bfloat16)
     got = cs.fused_cft_stack_plain(*t, num_heads=8).float().numpy()
-    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8),
+    want = np.asarray(_stack_reference(*j, num_heads=8),
                       np.float32)
     assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
@@ -164,7 +170,7 @@ def test_stack_plain_matches_jax_reference_at_100_tokens():
           f(L, 4 * C), f(L, 4 * C, C), f(L, C), ln(), ln()]
     t, j = _cast(x, ws, torch.float32, jnp.float32)
     got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
-    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    want = np.asarray(_stack_reference(*j, num_heads=8))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
@@ -268,7 +274,7 @@ def test_stack_plain_matches_jax_reference_at_head_width_160():
     x, ws = _inputs(1, 1280, 1, seed=9)
     t, j = _cast(x, ws, torch.float32, jnp.float32)
     got = cs.fused_cft_stack_plain(*t, num_heads=8).numpy()
-    want = np.asarray(pf.fused_cft_stack_reference(*j, num_heads=8))
+    want = np.asarray(_stack_reference(*j, num_heads=8))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 

@@ -1,0 +1,246 @@
+"""PyTorch port, the evaluation path end to end against the JAX package on
+the mini n-scale two-stream CFT model (nc=2, 64 px, fp32, random weights
+from a seed): the eval forwards (single and every ensemble mode) within
+1e-4 relative of the JAX eval forward (BN folded, as the JAX CLI runs it;
+the TTA forward is the JAX-pinned ``tta_forward`` of tests/test_torch_c3.py
+on the inputs / 255), and the two test CLIs on one JAX checkpoint
+directory and one synthetic PNG set: mAP50 and mAP within 0.1 pt (the
+eval-parity bar of PARITY_synthetic.md), default and ``--save-hybrid``,
+and the ``--save-txt --save-conf`` files line for line to 1e-4. Also the
+CLI's guards: no GPU without ``--device cpu``, the flags of later slices,
+and the single-checkpoint flags."""
+
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+from flax import serialization
+
+from multispectral_object_detection_tpu.cli.test_cli import main as jax_main
+from multispectral_object_detection_tpu.ops import ds_fusion as jds
+from multispectral_object_detection_tpu_torch import hub
+from multispectral_object_detection_tpu_torch.cli import test_cli
+from multispectral_object_detection_tpu_torch.data.synthetic import (
+    make_paired_dataset)
+from multispectral_object_detection_tpu_torch.models import configs
+from multispectral_object_detection_tpu_torch.train import eval_forward
+from multispectral_object_detection_tpu_torch.train.tta import tta_forward
+from tests._torch_port import (  # noqa: F401
+    jax_fused_forward, mini_weights, share_torch_threads)
+
+CFG, NC, IMG = "yolov5n_fusion_transformerx3", 2, 64
+TOL = 1e-4  # fp32 forwards: max |port - jax| / max |jax|
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    """Two JAX checkpoint directories (stripped ``model.msgpack``) of
+    seeded random weights and a synthetic set of 8 PNG pairs."""
+    root = tmp_path_factory.mktemp("evalcli")
+    cfg = configs.get_config(CFG, nc=NC)
+    members = [mini_weights(seed) for seed in (0, 1)]
+    assert all(m["cfg"] == cfg for m in members)
+    ckpts = []
+    for i, m in enumerate(members):
+        params, stats = m["params"], m["stats"]
+        d = root / f"ckpt{i}"
+        d.mkdir()
+        (d / "model.msgpack").write_bytes(serialization.msgpack_serialize(
+            {"params": params, "batch_stats": stats}))
+        ckpts.append(str(d))
+    rgb, ir = make_paired_dataset(str(root / "data"), n_images=8,
+                                  img_size=IMG, nc=NC, seed=5)
+    data = {"train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
+            "nc": NC, "names": ["red", "blue"]}
+    data_yaml = root / "synth.yaml"
+    data_yaml.write_text(yaml.safe_dump(data))
+    # a listing of the first 4 pairs, for the runs that check paths only
+    small = dict(data)
+    for side, d in (("rgb", rgb), ("ir", ir)):
+        listing = root / f"val4_{side}.txt"
+        listing.write_text("\n".join(sorted(str(f) for f in Path(d).glob(
+            "*.png"))[:4]) + "\n")
+        small[f"val_{side}"] = str(listing)
+    return dict(root=root, cfg=cfg, members=members, ckpts=ckpts, data=data,
+                small=small, data_yaml=str(data_yaml))
+
+
+def _common(ws, name):
+    return ["--cfg", CFG, "--batch-size", "4", "--img-size", str(IMG),
+            "--fp32", "--project", str(ws["root"] / "runs"), "--name", name]
+
+
+def _port(ws, argv, data=None):
+    args = test_cli.parse_args(["--device", "cpu", "--data",
+                                ws["data_yaml"]] + argv)
+    if data is not None:
+        args.data = data  # a dict, as chip_smoke.py passes it
+    return test_cli.run(args)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_test_clis_agree_on_one_checkpoint(ws, hybrid):
+    extra = ["--save-hybrid"] if hybrid else ["--save-txt", "--save-conf"]
+    name = "hyb" if hybrid else "val"
+    want = jax_main(_common(ws, f"jax_{name}") + [
+        "--data", ws["data_yaml"], "--weights", ws["ckpts"][0]] + extra)
+    got = _port(ws, _common(ws, f"port_{name}") + ["--weights",
+                                                   ws["ckpts"][0]] + extra,
+                data=ws["data"] if hybrid else None)
+    assert got["seen"] == want["seen"] == 8
+    for k in ("map50", "map"):
+        assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
+    if hybrid:  # the ground truth, injected at confidence 1, finds itself
+        assert got["map50"] > 0.95 and got["map"] > 0.95
+        return
+    jdir = ws["root"] / "runs" / "jax_val" / "labels"
+    tdir = ws["root"] / "runs" / "port_val" / "labels"
+    files = sorted(p.name for p in jdir.glob("*.txt"))
+    assert files == sorted(p.name for p in tdir.glob("*.txt"))
+    assert len(files) == 8
+    n_lines = 0
+    for f in files:
+        a = [np.float64(ln.split()) for ln in (tdir / f).read_text().splitlines()]
+        b = [np.float64(ln.split()) for ln in (jdir / f).read_text().splitlines()]
+        assert len(a) == len(b), f
+        # line for line, up to the order of lines whose scores tie within
+        # the precision of the two frameworks' sums
+        unused = list(range(len(b)))
+        for row in a:
+            hit = next((j for j in unused if len(b[j]) == 6 == len(row)
+                        and b[j][0] == row[0] and np.allclose(
+                            row[1:], b[j][1:], rtol=1e-4, atol=1e-4)), None)
+            assert hit is not None, (f, row)
+            unused.remove(hit)
+        n_lines += len(a)
+    assert n_lines > 0
+
+
+def test_port_cli_ensembles_tta_int8_speed_and_coco(ws, tmp_path):
+    """The port's CLI paths that the parity test above does not take, run
+    on the CPU over 4 of the images (a listing file): finite metrics."""
+    # fewer candidates than the eval protocol's conf 0.001: these runs
+    # check the paths, not the protocol
+    base = _common(ws, "more") + ["--weights", ws["ckpts"][0],
+                                  "--conf-thres", "0.1"]
+    two = _common(ws, "ens") + ["--weights"] + ws["ckpts"] + [
+        "--conf-thres", "0.1"]
+    runs = [base + ["--augment", "--no-fuse"],
+            base + ["--int8", "--no-rect", "--save-coco",
+                    str(tmp_path / "c.json"), "--save-json",
+                    str(tmp_path / "r.json")],
+            two + ["--ensemble-mode", "ds-sun"]]
+    for argv in runs:
+        r = _port(ws, argv, data=ws["small"])
+        assert r["seen"] == 4 and np.isfinite([r["map50"], r["map"]]).all()
+        if "--save-coco" in argv:
+            assert set(r["coco"]) == {"AP", "AP50", "AP75"}
+    assert (tmp_path / "c.json").is_file() and (tmp_path / "r.json").is_file()
+    speed = _port(ws, base + ["--task", "speed", "--batch-size", "1"],
+                  data=ws["small"])
+    assert speed["ms_per_image"] > 0
+
+
+@pytest.fixture(scope="module")
+def fwd_inputs(ws):
+    """The two members through the JAX eval forward (BN folded, as the JAX
+    CLI runs it) and through the port's models read from the checkpoint
+    directories."""
+    rng = np.random.default_rng(1)
+    rgb, ir = (rng.integers(0, 256, (2, IMG, IMG, 3), dtype=np.uint8)
+               for _ in range(2))
+    jf = jax_fused_forward()
+    members = [np.asarray(jf(m["fparams"], rgb, ir)[1])
+               for m in ws["members"]]
+    models = [hub.create(ws["cfg"], NC, weights=c, dtype=torch.float32,
+                         device="cpu") for c in ws["ckpts"]]
+    return dict(models=models, members=members,
+                t=(torch.from_numpy(rgb), torch.from_numpy(ir)))
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= TOL, err
+
+
+def test_eval_forward_matches_jax(fwd_inputs):
+    f = fwd_inputs
+    for model, want in zip(f["models"], f["members"]):
+        got, raw = eval_forward.make_eval_forward(model)(*f["t"])
+        assert len(raw) == 3
+        _close(got, want)
+
+
+@pytest.mark.parametrize("mode", eval_forward.ENSEMBLE_MODES)
+def test_eval_forward_ensemble_matches_jax(fwd_inputs, mode):
+    """Against the combination step of the JAX ensemble forward (what
+    follows its vmap over the members) on the JAX members' outputs."""
+    f = fwd_inputs
+    got, none = eval_forward.make_eval_forward_ensemble(f["models"], mode)(
+        *f["t"])
+    assert none is None
+    m = jnp.asarray(np.stack(f["members"]))                # (E, B, N, no)
+    e, b, n, no = m.shape
+    want = {"cat": lambda: jnp.moveaxis(m, 0, 1).reshape(b, e * n, no),
+            "mean": lambda: m.mean(axis=0), "max": lambda: m.max(axis=0)}.get(
+        mode, lambda: jds.fuse_detections_jit(
+            m, method={"ds": "plain", "ds-li": "li", "ds-sun": "sun"}[mode]))()
+    _close(got, want)
+
+
+def test_eval_forward_tta_is_tta_forward_of_the_scaled_inputs(fwd_inputs):
+    f = fwd_inputs
+    model = f["models"][0]
+    rgb, ir = (t[:1] for t in f["t"])
+    got, none = eval_forward.make_eval_forward_tta(model)(rgb, ir)
+    x, x2 = (t.permute(0, 3, 1, 2).float() / 255.0 for t in (rgb, ir))
+    with torch.inference_mode():
+        want = tta_forward(model, x, x2)
+    assert none is None and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_hub_ensemble_and_results(ws):
+    ens = hub.Ensemble([(ws["cfg"], c) for c in ws["ckpts"]], nc=NC,
+                       mode="max", device="cpu")
+    x = np.random.default_rng(0).random((1, IMG, IMG, 3), np.float32)
+    out = ens.decode_all(x, x)
+    assert out.shape == (1, 3 * sum((IMG // s) ** 2 for s in (8, 16, 32)),
+                         5 + NC) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown ensemble mode"):
+        hub.Ensemble([(ws["cfg"], None)], nc=NC, mode="bogus", device="cpu")
+    res = hub.DetectionResults([np.array([[1.0, 2, 3, 4]])],
+                               [np.array([0.5])], [np.array([1])],
+                               ["red", "blue"])
+    frame = res.pandas()[0]
+    assert len(res) == 1 and frame["name"].tolist() == ["blue"]
+
+
+def test_cli_without_gpu_and_without_device_cpu_prints_no_metric(
+        ws, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    rc = test_cli.main(["--data", ws["data_yaml"], "--weights",
+                        ws["ckpts"][0], "--cfg", CFG])
+    out = capsys.readouterr()
+    assert rc != 0 and "CUDA" in out.err
+    assert out.out == "" and "mAP" not in out.err
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--compute-loss"], "item 5"), (["--plots"], "item 7"),
+    (["--data-parallel", "2"], "item 6"), (["--wandb"], "item 7")])
+def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
+        _port(ws, ["--weights", ws["ckpts"][0]] + flag)
+
+
+@pytest.mark.parametrize("flag", ["--augment", "--int8"])
+def test_single_checkpoint_flags_refuse_an_ensemble(ws, flag):
+    with pytest.raises(SystemExit, match="single-checkpoint"):
+        _port(ws, ["--weights"] + ws["ckpts"] + [flag])

@@ -9,6 +9,7 @@ import re
 import pytest
 
 from multispectral_object_detection_tpu_torch import kernels
+from tests._torch_port import share_torch_threads  # noqa: F401
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 _CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,

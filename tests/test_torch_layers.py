@@ -26,7 +26,8 @@ from multispectral_object_detection_tpu_torch.models.fusion import (
     CrossModalFusion)
 from multispectral_object_detection_tpu_torch.models.model import (
     build_model, fuse_conv_bn, load_reference_state_dict)
-from tests._torch_port import load, random_state_dict, to_nchw, to_nhwc
+from tests._torch_port import (  # noqa: F401
+    load, random_state_dict, share_torch_threads, to_nchw, to_nhwc)
 
 DATA = Path(__file__).parent / "data"
 
@@ -64,7 +65,7 @@ def test_block_matches_jax(name, fused):
         variables = {"params": params}
     else:
         variables = {"params": params, "batch_stats": stats}
-    want = make_jax(fused).apply(variables, jnp.asarray(x))
+    want = jax.jit(make_jax(fused).apply)(variables, jnp.asarray(x))
     with torch.no_grad():
         got = port(to_nchw(x).contiguous(memory_format=torch.channels_last))
     np.testing.assert_allclose(to_nhwc(got), np.asarray(want), rtol=1e-4,
@@ -122,8 +123,9 @@ def test_detect_decode_matches_jax_row_for_row():
     params = {"params": {
         "m0": {"kernel": z["w0"].transpose(2, 3, 1, 0), "bias": z["b0"]},
         "m1": {"kernel": z["w1"].transpose(2, 3, 1, 0), "bias": z["b1"]}}}
-    jfeats = head.apply(params, [jnp.asarray(z["x0"].transpose(0, 2, 3, 1)),
-                                 jnp.asarray(z["x1"].transpose(0, 2, 3, 1))])
+    jfeats = jax.jit(head.apply)(
+        params, [jnp.asarray(z["x0"].transpose(0, 2, 3, 1)),
+                 jnp.asarray(z["x1"].transpose(0, 2, 3, 1))])
     for f, jf in zip(feats, jfeats):
         np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-4,
                                    atol=1e-4)
@@ -163,7 +165,7 @@ def test_fusion_matches_jax_module(hw):
     rng = np.random.default_rng(4)
     rgb, ir = (rng.standard_normal((2, *hw, 64)).astype(np.float32)
                for _ in range(2))
-    j1, j2 = JaxFusion(d_model=64, n_layer=2).apply(
+    j1, j2 = jax.jit(JaxFusion(d_model=64, n_layer=2).apply)(
         {"params": params["blocks_10"]}, (jnp.asarray(rgb), jnp.asarray(ir)))
     with torch.no_grad():
         o1, o2 = mod((to_nchw(rgb), to_nchw(ir)))

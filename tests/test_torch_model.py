@@ -14,8 +14,6 @@ import torch
 
 from multispectral_object_detection_tpu.models import build_model as jax_build
 from multispectral_object_detection_tpu.models import configs as jconfigs
-from multispectral_object_detection_tpu.models.model import (
-    fuse_conv_bn_params)
 from multispectral_object_detection_tpu.models.parser import (
     parse_model_config as jax_parse)
 from multispectral_object_detection_tpu.ops.nms import (
@@ -30,7 +28,8 @@ from multispectral_object_detection_tpu_torch.models.parser import (
     parse_model_config)
 from multispectral_object_detection_tpu_torch.utils.jax_import import (
     state_dict_from_jax)
-from tests._torch_port import random_state_dict, to_nchw
+from tests._torch_port import (  # noqa: F401
+    jax_fused_forward, mini_weights, share_torch_threads, to_nchw)
 
 IMG, NC, CONF = 64, 2, 0.3
 
@@ -62,11 +61,11 @@ def test_param_count_on_meta_matches_reference(cfg, count):
 def mini():
     """Port model with random weights, the same weights as JAX trees, a
     uint8 batch, and the JAX outputs (computed once per module)."""
-    cfg = configs.yolov5_two_stream("n", nc=NC, fusion="transformerx3")
+    w = mini_weights(0)
+    cfg, sd, params, stats = w["cfg"], w["sd"], w["params"], w["stats"]
+    assert cfg == configs.yolov5_two_stream("n", nc=NC, fusion="transformerx3")
     port = build_model(cfg)
-    sd = random_state_dict(port, seed=0)
     load_reference_state_dict(port, sd)
-    params, stats = convert_state_dict(sd)
     rng = np.random.default_rng(1)
     rgb, ir = (rng.integers(0, 256, (2, IMG, IMG, 3), dtype=np.uint8)
                for _ in range(2))
@@ -75,11 +74,7 @@ def mini():
     jmodel = jax_build(cfg)
     raw = jax.jit(lambda p, s: jmodel.apply(
         {"params": p, "batch_stats": s}, x, x2, train=False))(params, stats)
-    fused_model = jax_build(jmodel.spec, fused=True, use_pallas=True)
-    fparams = fuse_conv_bn_params(params, stats)
-    fraw = jax.jit(lambda p: fused_model.apply(
-        {"params": p, "batch_stats": {}}, x, x2, train=False))(fparams)
-    dets = fused_model.decode(fraw)
+    fraw, dets = jax_fused_forward()(w["fparams"], rgb, ir)
     nms = jax_batched_nms(dets, conf_thres=CONF, iou_thres=0.45,
                           multi_label=False, max_det=300, top_k=1024)
     return dict(cfg=cfg, port=port, sd=sd, params=params, stats=stats,

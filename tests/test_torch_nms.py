@@ -1,7 +1,11 @@
 """PyTorch port, batched NMS: kept detections identical to the JAX
 package's batched_nms on the same decoded predictions, including tied
-scores, where the order of the top-k decides which box survives."""
+scores, where the order of the top-k decides which box survives; the
+prior-label (``--save-hybrid``) and weighted-merge paths too. Validity,
+classes and scores must be equal; boxes equal, or within 1e-5 relative
+where the merge averages them (a sum in another order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +16,7 @@ from multispectral_object_detection_tpu.ops.nms import (
 from multispectral_object_detection_tpu_torch.ops.boxes import (
     pairwise_iou, xywh_to_xyxy)
 from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
+from tests._torch_port import share_torch_threads  # noqa: F401
 
 
 def _preds(rng, b, n, nc, wh=(10, 120)):
@@ -55,7 +60,70 @@ def _mixed(rng):
     return p
 
 
+def _hybrid(rng):
+    """The ground truth as the only candidates (test_nms_metrics.py's
+    test_nms_hybrid_labels_injected)."""
+    pred = np.zeros((1, 4, 7), np.float32)
+    labels = np.zeros((1, 2, 5), np.float32)
+    labels[0, 0] = [1, 100, 100, 40, 40]
+    labels[0, 1] = [0, 300, 300, 60, 60]
+    return pred, labels, np.ones((1, 2), np.float32)
+
+
+def _with_labels(rng, nc=3):
+    """Random predictions plus padded label blocks (some rows masked out),
+    labels overlapping predictions and each other."""
+    pred = _preds(rng, 2, 120, nc)
+    labels = np.zeros((2, 10, 5), np.float32)
+    labels[..., 0] = rng.integers(0, nc, (2, 10))
+    labels[..., 1:3] = pred[:, :10, :2] + rng.uniform(-5, 5, (2, 10, 2))
+    labels[..., 3:5] = rng.uniform(20, 100, (2, 10, 2))
+    lmask = np.zeros((2, 10), np.float32)
+    lmask[0, :7] = 1.0
+    lmask[1, :3] = 1.0
+    return pred, labels, lmask
+
+
+def _one_candidate(rng):
+    p = np.zeros((1, 16, 6), np.float32)
+    p[0, :, :4] = [100, 100, 40, 40]
+    p[0, 3, 4:] = [0.9, 1.0]
+    return p
+
+
+def _many(rng):
+    """3200 candidates above the gate: the merge is skipped."""
+    p = _preds(rng, 1, 3200, 1)
+    p[..., 4] = rng.uniform(0.3, 1.0, (1, 3200))
+    return p
+
+
 CASES = {
+    "hybrid_labels_injected": (_hybrid, dict(conf_thres=0.25, iou_thres=0.5,
+                                             max_det=10, top_k=16)),
+    "labels_multi_label": (_with_labels, dict(conf_thres=0.1, iou_thres=0.6,
+                                              multi_label=True, max_det=100,
+                                              top_k=512)),
+    "labels_single_class": (lambda r: _with_labels(r, nc=1),
+                            dict(conf_thres=0.1, iou_thres=0.6, max_det=100,
+                                 top_k=256)),
+    "merge_redundant": (lambda r: _preds(r, 2, 200, 3),
+                        dict(conf_thres=0.1, iou_thres=0.45, max_det=100,
+                             top_k=256, merge=True)),
+    "merge_keep_lone": (lambda r: _preds(r, 2, 200, 3),
+                        dict(conf_thres=0.1, iou_thres=0.45, max_det=100,
+                             top_k=256, merge=True, redundant=False)),
+    "merge_tied_scores": (_tied, dict(conf_thres=0.25, iou_thres=0.3,
+                                      max_det=100, top_k=128, merge=True)),
+    "merge_one_candidate": (_one_candidate, dict(conf_thres=0.25,
+                                                 iou_thres=0.45, max_det=10,
+                                                 top_k=16, merge=True)),
+    "merge_3000_candidates": (_many, dict(conf_thres=0.25, iou_thres=0.45,
+                                          max_det=300, top_k=4096,
+                                          merge=True)),
+    "merge_with_labels": (_with_labels, dict(conf_thres=0.1, iou_thres=0.6,
+                                             multi_label=True, max_det=100,
+                                             top_k=512, merge=True)),
     "single_class": (lambda r: _preds(r, 2, 200, 1),
                      dict(conf_thres=0.1, iou_thres=0.5, max_det=200, top_k=256)),
     "tied_scores": (_tied, dict(conf_thres=0.25, iou_thres=0.3, max_det=100,
@@ -91,21 +159,46 @@ CASES = {
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_nms_identical_to_jax(name):
     make, kw = CASES[name]
-    pred = make(np.random.default_rng(len(name)))
-    jkw = dict(kw)
+    made = make(np.random.default_rng(len(name)))
+    pred, labels, lmask = made if isinstance(made, tuple) else (made, None,
+                                                                None)
+    jkw, tkw = dict(kw), dict(kw)
     if "class_mask" in kw:
         jkw["class_mask"] = jnp.asarray(kw["class_mask"])
+    if labels is not None:
+        jkw.update(labels=jnp.asarray(labels), labels_mask=jnp.asarray(lmask))
+        tkw.update(labels=torch.from_numpy(labels),
+                   labels_mask=torch.from_numpy(lmask))
     want = jax_batched_nms(jnp.asarray(pred), **jkw)
-    got = batched_nms(torch.from_numpy(pred), **kw)
+    stats = {}
+    got = batched_nms(torch.from_numpy(pred), stats=stats, **tkw)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.classes.numpy(),
                                   np.asarray(want.classes))
     np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
-    np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(want.boxes))
+    if kw.get("merge"):
+        np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.boxes.numpy(),
+                                      np.asarray(want.boxes))
+    # every iteration keeps one box in each image that still has candidates
+    kept = int(got.valid.sum(1).max()) if not kw.get("merge") else None
+    if kept is not None:
+        assert kept <= stats["iterations"] <= min(kw["max_det"], kept + 8)
     if name == "full_max_det":
         assert got.valid.all()
     if name in ("empty_image", "mixed_batch"):
         assert not got.valid[0].any()
+    if name == "hybrid_labels_injected":
+        assert int(stats["candidates"]) == 2 and got.valid.sum() == 2
+        np.testing.assert_array_equal(got.scores[got.valid].numpy(), 1.0)
+    if name == "merge_one_candidate":  # a lone box is kept unmerged
+        assert got.valid.sum() == 1
+        np.testing.assert_array_equal(got.boxes[0, 0].numpy(),
+                                      [80, 80, 120, 120])
+    if name == "merge_3000_candidates":
+        assert int(stats["candidates"]) >= 3000
 
 
 def test_box_ops_match_jax():
@@ -119,5 +212,5 @@ def test_box_ops_match_jax():
         jnp.asarray(b))
     np.testing.assert_array_equal(xa.numpy(), np.asarray(ja))
     np.testing.assert_allclose(pairwise_iou(xa, xb).numpy(),
-                               np.asarray(jboxes.pairwise_iou(ja, jb)),
+                               np.asarray(jax.jit(jboxes.pairwise_iou)(ja, jb)),
                                rtol=1e-6, atol=1e-7)
