@@ -44,13 +44,30 @@ failure raises and the script exits non-zero:
    outputs through the kernels against the plain stack; prints an
    ``{"eval": {...}}`` line (s per image, forward / NMS / matching ms per
    image, NMS candidates per image and iterations per batch, mAP50, mAP).
-6. timing with CUDA events: each kernel over one forward's launches at the
+6. the serving path: a ``Detector`` built from a seeded random-weight
+   ``.pt`` of the l-scale model (BN folded, bf16, conf 0.01) serves
+   ``Detector.__call__`` on 16 PNG pairs at FLIR's 640x512 (letterbox pad
+   only) and at LLVIP's 1280x1024 (a resize), with K1's 168 launches per
+   forward counted and the boxes checked against ``Detector.infer`` on the
+   same letterboxed batch, rescaled; ms per call split into host decode +
+   letterbox, forward + NMS and rescale; the device letterbox
+   (``ops/preprocess.letterbox_batch``) against the host one on the
+   1280x1024 batch, timed; the native JPEG decode (libjpeg where the
+   machine has ``jpeglib.h``, else nvJPEG where it has CUDA's
+   ``nvjpeg.h``) of the committed fixtures (tests/data/jpeg) against
+   cv2's stored decode; the detect CLI headless (``--nosave --save-txt``)
+   and saving on 16 LLVIP-sized PNG pairs and 16 JPEG pairs
+   (``--batch-size 16``), its label files against ``Detector.__call__``'s,
+   fps and fps_steady; the REST service on a loopback port, one PNG pair
+   and one JPEG pair, its JSON against ``Detector.__call__``'s records; a
+   ``{"serving": {...}}`` line.
+7. timing with CUDA events: each kernel over one forward's launches at the
    main path's shapes (K2 at the ``--c3-kernel`` leg's), beside its bound,
    its achieved TFLOP/s and share of the bound, its plain version and one
    PyTorch library call for the same function; LayerNorm and attention at
    the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
    K2's two launches apart; the main path's ms per batch and its profile.
-7. a ``{"kernels": [...]}`` line, the card line, and the final
+8. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -82,6 +99,14 @@ IMG, BATCH, REQUESTS = 640, 16, 3
 # eval phase: LLVIP-shaped synthetic pairs (h, w), at the test CLI's defaults
 EVAL_IMAGES, EVAL_HW, EVAL_BATCH = 64, (512, 640), 32
 EVAL_MIN_HYBRID_MAP = 0.95
+# serving phase: FLIR's and LLVIP's frames (h, w), 16 pairs per call; random
+# weights score about 0.02 (the Detect head's objectness prior), so a
+# threshold of 0.01 leaves detections to compare
+SERVE_SIZES = {"flir": (512, 640), "llvip": (1024, 1280)}
+SERVE_BATCH, SERVE_CONF, SERVE_REPEATS = 16, 0.01, 3
+# mean |decode - cv2's| on 0-255: IDCT rounding and chroma upsampling of
+# another decoder (the JAX copy's bound)
+JPEG_MEAN_TOL = 2.0
 # K2 blocks of one l@640 bs16 forward with --c3-kernel: (B, H, W, C), count
 K2_BLOCKS = (((16, 160, 160, 64), 6), ((16, 80, 80, 128), 18),
              ((16, 40, 40, 256), 18))
@@ -603,6 +628,313 @@ def phase_eval(torch, device):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _label_lines(boxes, classes, h0, w0):
+    """The detect CLI's --save-txt lines of one image (cls, normalised
+    xywh, as its labels/<stem>.txt)."""
+    lines = []
+    for b, c in zip(boxes, classes):
+        cx, cy = (b[0] + b[2]) / 2 / w0, (b[1] + b[3]) / 2 / h0
+        bw, bh = (b[2] - b[0]) / w0, (b[3] - b[1]) / h0
+        lines.append(" ".join(str(v) for v in (int(c), cx, cy, bw, bh)))
+    return lines
+
+
+def _close_lines(got, want, tol):
+    """Label lines equal in count and class, values within tol."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        g, w = g.split(), w.split()
+        if g[0] != w[0] or max(abs(float(a) - float(b))
+                               for a, b in zip(g[1:], w[1:])) > tol:
+            return False
+    return True
+
+
+def phase_serving(torch, device):
+    """Phase 6: the serving path: Detector.__call__ on FLIR- and
+    LLVIP-sized pairs, the device letterbox against the host one, the
+    detect CLI on PNG and JPEG sets, the JPEG decode against cv2's, and the
+    REST service on loopback. Returns the serving line's numbers."""
+    import statistics
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from multispectral_object_detection_tpu_torch.cli import detect_cli
+    from multispectral_object_detection_tpu_torch.data import native
+    from multispectral_object_detection_tpu_torch.data.augment import (
+        letterbox)
+    from multispectral_object_detection_tpu_torch.data.imageio import imread
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.hub import Detector
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, init_weights)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.ops.preprocess import (
+        letterbox_batch)
+    from multispectral_object_detection_tpu_torch.serve import rest_api
+    from multispectral_object_detection_tpu_torch.utils.general import (
+        rescale_to_native)
+
+    per_forward = {"cft_layernorm": 48, "cft_gemm_bias": 24,
+                   "cft_gemm_gelu": 24, "cft_gemm_residual": 48,
+                   "cft_attention": 24, "c3_bottleneck": 0}
+
+    def reset():
+        cs.reset_launches()
+        k2.reset_launches()
+
+    def counted(forwards, what):
+        torch.cuda.synchronize()
+        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        want = {k: v * forwards for k, v in per_forward.items()}
+        check(got == want, f"{what}: launch counts {got} != {want}")
+        return sum(got.values())
+
+    scratch = Path(__file__).resolve().parent / ".scratch"
+    scratch.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=scratch))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        sets = {name: make_paired_dataset(str(root / name),
+                                          n_images=SERVE_BATCH, nc=1,
+                                          seed=3, img_hw=hw)
+                for name, hw in SERVE_SIZES.items()}
+        m = build_model(get_config("yolov5l_fusion_transformerx3", nc=1),
+                        nc=1)
+        init_weights(m, torch.Generator().manual_seed(0))
+        ckpt = str(root / "l_seed0.pt")
+        torch.save(m.state_dict(), ckpt)
+        del m
+        det = Detector("yolov5l_fusion_transformerx3", nc=1, weights=ckpt,
+                       img_size=IMG, conf=SERVE_CONF, dtype=torch.bfloat16,
+                       device=device)
+        print(f"serving: {SERVE_BATCH} PNG pairs at each of "
+              f"{list(SERVE_SIZES.values())} (h, w) and an l-scale .pt "
+              f"written, Detector built, in {time.perf_counter() - t0:.1f} s")
+
+        # Detector.__call__ at each native size
+        for name, (rgb_dir, ir_dir) in sets.items():
+            rgb_p = sorted(str(p) for p in Path(rgb_dir).glob("*.png"))
+            ir_p = sorted(str(p) for p in Path(ir_dir).glob("*.png"))
+            det(rgb_p, ir_p)  # first use of this batch's shapes
+            reset()
+            res = det(rgb_p, ir_p)
+            launches = counted(1, f"Detector.__call__ {name}")
+            parts = {"prepare": [], "infer": [], "results": []}
+            for _ in range(SERVE_REPEATS):
+                ta = time.perf_counter()
+                rgb, ir, meta, raw = det.prepare(rgb_p, ir_p)
+                tb = time.perf_counter()
+                d = det.infer(rgb, ir)
+                torch.cuda.synchronize()
+                tc = time.perf_counter()
+                det.results(d, meta, raw)
+                td = time.perf_counter()
+                for k, v in zip(parts, (tb - ta, tc - tb, td - tc)):
+                    parts[k].append(1e3 * v)
+            ms = {k: statistics.median(v) for k, v in parts.items()}
+            # the same letterboxed batch through Detector.infer, rescaled
+            # here by the evaluator's rescale
+            boxes, scores, classes, valid = (t.cpu().numpy()
+                                             for t in det.infer(rgb, ir))
+            n_det = [len(b) for b in res.boxes]
+            check(sum(n_det) > 0, f"{name}: no detections at conf "
+                  f"{SERVE_CONF}")
+            worst = 0.0
+            for i, (hw0, ratio, pad) in enumerate(meta):
+                b = rescale_to_native(boxes[i][valid[i]], (IMG, IMG), hw0,
+                                      (ratio, pad))
+                check(b.shape == res.boxes[i].shape and np.array_equal(
+                    classes[i][valid[i]], res.classes[i]),
+                      f"{name}: image {i} detections differ from infer's")
+                worst = max(worst, float(np.abs(b - res.boxes[i]).max(
+                    initial=0.0)))
+                check(bool(np.isfinite(res.boxes[i]).all()) and
+                      (res.boxes[i][:, [0, 2]] <= hw0[1]).all() and
+                      (res.boxes[i][:, [1, 3]] <= hw0[0]).all(),
+                      f"{name}: boxes outside the native image")
+            check(worst <= 1e-3, f"{name}: boxes differ from infer's, "
+                  f"rescaled, by {worst} px")
+            h, w = SERVE_SIZES[name]
+            print(f"serving {name} {w}x{h}, {SERVE_BATCH} pairs per call: "
+                  f"{launches} kernel launches in one call (K1 168); ms "
+                  f"per call (median of {SERVE_REPEATS}): host decode + "
+                  f"letterbox {ms['prepare']:.3f}, forward + NMS "
+                  f"{ms['infer']:.3f}, rescale {ms['results']:.3f}; "
+                  f"detections per image {n_det}; vs infer rescaled: "
+                  f"max |d| {worst:.2e} px")
+            out[f"call_{name}"] = {
+                "ms_prepare": ms["prepare"], "ms_forward_nms": ms["infer"],
+                "ms_rescale": ms["results"],
+                "pairs_per_s": SERVE_BATCH * 1e3 / sum(ms.values()),
+                "k1_launches": launches, "detections": sum(n_det)}
+
+        # the device letterbox against the host one, LLVIP-sized batch
+        raws = np.stack(raw)
+        t0 = time.perf_counter()
+        host = np.stack([letterbox(r, (IMG, IMG))[0] for r in raw])
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        x = torch.from_numpy(raws).to(device)
+        dev = letterbox_batch(x, IMG, normalize=False)
+        diff = (dev.cpu().numpy() - host.astype(np.float32))
+        dev_ms = cuda_ms(lambda: letterbox_batch(x, IMG, normalize=False),
+                         iters=10, warmup=2)
+        up_ms = cuda_ms(lambda: letterbox_batch(
+            torch.from_numpy(raws).to(device), IMG, normalize=False),
+            iters=5, warmup=1)
+        mean_d, max_d = float(np.abs(diff).mean()), float(np.abs(diff).max())
+        print(f"letterbox of {raws.shape[0]} pairs' RGB at "
+              f"{raws.shape[2]}x{raws.shape[1]}: host (C++) {host_ms:.3f} ms, "
+              f"device {dev_ms:.3f} ms ({up_ms:.3f} ms with the upload); "
+              f"device vs host mean |d| {mean_d:.4f}, max {max_d:.4f} "
+              f"(0-255; bound: mean < 1)")
+        check(mean_d < 1.0, f"device letterbox differs: mean {mean_d}")
+        out["letterbox_llvip"] = {"host_ms": host_ms, "device_ms": dev_ms,
+                                  "device_with_upload_ms": up_ms,
+                                  "mean_abs_diff": mean_d,
+                                  "max_abs_diff": max_d}
+
+        # JPEG: the committed fixtures against cv2's decode
+        jpeg_dir = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+        cli_sets = {"png": sets["llvip"]}
+        if native.jpeg_available():
+            ref = np.load(jpeg_dir / "decode.npz")
+            worst_mean = worst_max = 0.0
+            for p in sorted(jpeg_dir.glob("*.jpg")):
+                img = native.decode_jpeg(p.read_bytes())
+                for got, want in ((img[::8, ::8], ref[f"{p.stem}_sub"]),) + (
+                        ((img, ref["small_rgb"]),) if p.stem == "small_rgb"
+                        else ()):
+                    check(got.shape == want.shape, f"{p.name}: shape")
+                    d = np.abs(got.astype(int) - want.astype(int))
+                    worst_mean = max(worst_mean, float(d.mean()))
+                    worst_max = max(worst_max, float(d.max()))
+            print(f"jpeg: {native.jpeg_backend()} decode of the 6 fixtures "
+                  f"vs cv2's: worst "
+                  f"mean |d| {worst_mean:.4f}, max |d| {worst_max:.0f} "
+                  f"(bound: mean < {JPEG_MEAN_TOL}; 0 = cv2's pixels)")
+            check(worst_mean < JPEG_MEAN_TOL, "JPEG decode differs from cv2")
+            out["jpeg_decode"] = {"backend": native.jpeg_backend(),
+                                  "mean_abs_diff": worst_mean,
+                                  "max_abs_diff": worst_max}
+            jroot = root / "jpeg"
+            for side in ("rgb", "ir"):
+                (jroot / side).mkdir(parents=True)
+                for k in range(SERVE_BATCH):
+                    shutil.copy(jpeg_dir / f"llvip_{side}_{k % 2}.jpg",
+                                jroot / side / f"{k:06d}.jpg")
+            cli_sets["jpeg"] = (str(jroot / "rgb"), str(jroot / "ir"))
+        else:
+            print("jpeg: neither jpeglib.h nor CUDA's nvjpeg.h on this "
+                  "machine: JPEG decode unverified on the card; the JPEG "
+                  "legs are left out")
+
+        # the detect CLI, headless and saving, against Detector.__call__:
+        # LLVIP's frame shrinks by exactly 2 to 640 px, where the headless
+        # load's INTER_AREA and the letterbox's INTER_LINEAR (cv2's, and
+        # the port's) give the same pixels, so all label files agree
+        for kind, (rgb_dir, ir_dir) in cli_sets.items():
+            files = sorted(Path(rgb_dir).iterdir())
+            irs = sorted(Path(ir_dir).iterdir())
+            want = det([str(p) for p in files], [str(p) for p in irs])
+            for leg, extra in (("headless", ["--nosave"]), ("save", [])):
+                args = detect_cli.parse_args(
+                    ["--weights", ckpt, "--source1", rgb_dir, "--source2",
+                     ir_dir, "--nc", "1", "--img-size", str(IMG),
+                     "--conf-thres", str(SERVE_CONF), "--save-txt",
+                     "--batch-size", str(SERVE_BATCH), "--device",
+                     str(device), "--project", str(root / "runs"),
+                     "--name", f"{kind}_{leg}"] + extra)
+                reset()
+                t0 = time.perf_counter()
+                r = detect_cli.run(args)
+                wall = time.perf_counter() - t0
+                launches = counted(1, f"detect CLI {kind} {leg}")
+                check(r["n_images"] == SERVE_BATCH and r["n_det"] > 0,
+                      f"detect CLI {kind} {leg}: {r}")
+                same = exact = 0
+                for i, p in enumerate(files):
+                    got = (Path(r["save_dir"]) / "labels" /
+                           f"{p.stem}.txt").read_text().splitlines()
+                    ref_lines = _label_lines(want.boxes[i], want.classes[i],
+                                             *want.images[i].shape[:2])
+                    exact += got == ref_lines
+                    same += _close_lines(got, ref_lines, 1e-6)
+                check(same == len(files), f"detect CLI {kind} {leg}: "
+                      f"{len(files) - same} label files differ from "
+                      f"Detector.__call__'s")
+                written = len(list(Path(r["save_dir"]).glob("*_rgb.*")))
+                check(written == (0 if leg == "headless" else SERVE_BATCH),
+                      f"detect CLI {kind} {leg}: {written} images written")
+                h, w = want.images[0].shape[:2]
+                print(f"detect CLI {kind} {leg} ({SERVE_BATCH} pairs "
+                      f"{w}x{h}, --batch-size {SERVE_BATCH}): fps "
+                      f"{r['fps']:.2f}, fps_steady {r['fps_steady']:.2f} "
+                      f"(one batch: steady = end to end), {r['n_det']} "
+                      f"detections, {launches} kernel launches (K1 168), "
+                      f"{wall:.1f} s with the model build; label files as "
+                      f"Detector.__call__'s: {same}/{len(files)} (byte for "
+                      f"byte: {exact})")
+                out[f"cli_{kind}_{leg}"] = {
+                    "fps": r["fps"], "fps_steady": r["fps_steady"],
+                    "n_det": r["n_det"], "s_with_build": wall}
+                torch.cuda.empty_cache()
+
+        # REST on loopback: one PNG pair and one JPEG pair
+        server = rest_api.make_server(det, "cft", "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = (f"http://127.0.0.1:{server.server_address[1]}"
+                   "/v1/object-detection/cft")
+            for kind, (rgb_dir, ir_dir) in cli_sets.items():
+                pr, pi = (sorted(Path(d).iterdir())[0] for d in (rgb_dir,
+                                                                 ir_dir))
+                ctype, body = rest_api.encode_multipart(
+                    {"image": (pr.name, pr.read_bytes()),
+                     "image_ir": (pi.name, pi.read_bytes())})
+                def post():
+                    req = urllib.request.Request(
+                        url, data=body, headers={"Content-Type": ctype})
+                    with urllib.request.urlopen(req, timeout=300) as resp:
+                        return resp.status, json.loads(resp.read())
+
+                first = post()  # the first pass at batch 1 pays first uses
+                reset()
+                t0 = time.perf_counter()
+                status, got = post()
+                rest_ms = 1e3 * (time.perf_counter() - t0)
+                counted(1, f"REST {kind}")
+                check(first == (status, got), f"REST {kind}: two requests "
+                      f"of one pair answered differently")
+                want = det([imread(pr)], [imread(pi)]).records()[0]
+                check(status == 200 and got == want and len(got) > 0,
+                      f"REST {kind}: {status}, {len(got)} records, equal to "
+                      f"Detector.__call__'s: {got == want}")
+                print(f"REST {kind}: 200, {len(got)} records equal to "
+                      f"Detector.__call__'s, {rest_ms:.1f} ms for the second "
+                      f"request (decode, letterbox, batch-1 forward, NMS, "
+                      f"JSON)")
+                out[f"rest_{kind}_ms"] = rest_ms
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        del det
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def k2_library(x, w1, b1, w2, b2):
     """K2's function as the port computes it without the flag, on cuDNN:
     conv(+b1) -> SiLU -> conv(+b2) -> SiLU -> + x, NCHW channels_last. Its
@@ -625,7 +957,7 @@ def _gemm_cost(Mr, K, Nout, residual):
 
 
 def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
-    """Phase 6: kernel rows (per forward of the main paths) and end to end."""
+    """Phase 7: kernel rows (per forward of the main paths) and end to end."""
     from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
 
     gen = torch.Generator().manual_seed(2)
@@ -927,6 +1259,9 @@ def main() -> int:
     eval_runs = phase_eval(torch, device)
     print(f"phase 5: {sum(k != 'nms_batch' for k in eval_runs)} eval runs "
           f"through the kernels")
+    serving = phase_serving(torch, device)
+    print("phase 6: Detector.__call__, the detect CLI and the REST service "
+          "served through the kernels")
     rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
                                stages, card)
 
@@ -939,6 +1274,7 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"eval": eval_runs}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

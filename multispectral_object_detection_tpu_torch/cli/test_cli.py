@@ -107,13 +107,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _device(arg: str) -> torch.device:
-    from ..utils.general import select_device
-
-    arg = (arg or "").strip()
-    return select_device(f"cuda:{arg}" if arg.isdigit() else (arg or None))
-
-
 def _load_data(data) -> dict:
     if isinstance(data, dict):
         return data
@@ -181,10 +174,11 @@ def run(args) -> dict:
     """Evaluate; returns the result dict (``speed``: {"ms_per_image"};
     ``study``: {size: {"map50", "map"}})."""
     from ..train.evaluator import evaluate
-    from ..utils.general import check_img_size, increment_path
+    from ..utils.general import (check_img_size, device_from_arg,
+                                 increment_path)
 
     _check_flags(args)
-    device = _device(args.device)
+    device = device_from_arg(args.device)
     if args.task == "study":
         return study_task(args)
     data = _load_data(args.data)
@@ -283,7 +277,6 @@ def _save_coco_json(fwd, loader, ds, args, device) -> dict:
     is_coco = "coco" in str(args.data).lower()
     c91 = coco80_to_coco91_class()
     jdict, gt_records = [], []
-    img_i = 0
     for batch in loader:
         rgb = torch.from_numpy(batch["rgb"]).to(device)
         ir = torch.from_numpy(batch["ir"]).to(device) if "ir" in batch \
@@ -295,7 +288,7 @@ def _save_coco_json(fwd, loader, ds, args, device) -> dict:
                           agnostic=args.single_cls)
         boxes_b, scores_b, classes_b, valid_b = (t.cpu().numpy() for t in det)
         H, W = rgb.shape[1:3]
-        for si in range(rgb.shape[0]):
+        for si, img_i in enumerate(batch["index"]):
             stem = Path(ds.rgb_files[img_i]).stem
             image_id = int(stem) if stem.isnumeric() else stem
             v = valid_b[si]
@@ -320,7 +313,6 @@ def _save_coco_json(fwd, loader, ds, args, device) -> dict:
                     "bbox": [float((row[1] - row[3] / 2) * w0),
                              float((row[2] - row[4] / 2) * h0),
                              float(row[3] * w0), float(row[4] * h0)]})
-            img_i += 1
     Path(args.save_coco).write_text(json.dumps(jdict))
     logger.info(f"wrote {len(jdict)} COCO records -> {args.save_coco}")
     coco = coco_eval_bbox(gt_records, jdict)
@@ -354,10 +346,12 @@ def speed_task(fwd, loader, device: torch.device) -> dict:
 
 
 def main(argv=None) -> int:
+    from ..utils.general import device_from_arg
+
     logging.basicConfig(format="%(message)s", level=logging.INFO)
     args = parse_args(argv)
     try:
-        _device(args.device)
+        device_from_arg(args.device)
     except RuntimeError as e:
         print(f"test_cli: {e}", file=sys.stderr)
         return 1

@@ -1,13 +1,14 @@
-"""Loading and letterboxing of evaluation images (no augmentation).
+"""Loading and letterboxing of evaluation and serving images (no
+augmentation).
 
 The port's counterparts of ``load_scaled``, ``load_scaled_pair`` and
 ``letterbox`` in multispectral_object_detection_tpu/data/augment.py, with
-the same geometry. Files are read by ``data/imageio.imread``; padding is
-numpy. A resize (an image whose longest side is not ``img_size``, or a
-canvas it does not fit unscaled) uses cv2 with the JAX package's
-interpolation where cv2 is importable, and raises where it is not: images
-written at ``img_size`` on their longest side need none. Training's
-augmentations (mosaic, affine, HSV, flips) wait for the training slice.
+the same geometry and the same pixels: files are read by
+``data/imageio.imread``, resizes run in the port's C++ image runtime
+(``data/native.py``, cv2's INTER_AREA for shrinking to the longest side and
+INTER_LINEAR in the letterbox, as the JAX package calls cv2), padding is
+numpy. Training's augmentations (mosaic, affine, HSV, flips) wait for the
+training slice.
 """
 
 from __future__ import annotations
@@ -16,23 +17,16 @@ from typing import Tuple
 
 import numpy as np
 
+from . import native
 from .imageio import imread
 
 PAD_VALUE = 114
 
 
 def _resize(im: np.ndarray, wh: Tuple[int, int], area: bool) -> np.ndarray:
-    """cv2.resize to (w, h): INTER_AREA when ``area`` (shrinking), else
-    INTER_LINEAR."""
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"resizing an image of {im.shape[1]}x{im.shape[0]} to "
-            f"{wh[0]}x{wh[1]} needs cv2, which is not installed; write the "
-            f"images at the evaluation size on their longest side") from None
-    return cv2.resize(im, wh, interpolation=cv2.INTER_AREA if area
-                      else cv2.INTER_LINEAR)
+    """Resize to (w, h): cv2.INTER_AREA when ``area`` (shrinking), else
+    cv2.INTER_LINEAR."""
+    return native.resize(im, wh[1], wh[0], area=area)
 
 
 def _scale_to(im: np.ndarray, r: float) -> np.ndarray:

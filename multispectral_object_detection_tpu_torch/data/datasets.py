@@ -355,11 +355,13 @@ class PairedDetectionDataset:
                 (hw0, (ratio, padwh)))
 
 
-def collate_batch(samples, max_labels: int = 120) -> dict:
+def collate_batch(samples, indices, max_labels: int = 120) -> dict:
     """Stack samples into static shapes: ``rgb`` (B, h, w, 3) uint8,
     ``ir`` likewise (absent for single-stream data), ``targets``
     (B * max_labels, 6) [img, cls, x, y, w, h], ``tmask`` (B *
-    max_labels,) float32 and ``shapes`` (the samples' shape_info)."""
+    max_labels,) float32, ``shapes`` (the samples' shape_info) and
+    ``index`` (B,) int64, the samples' ``indices`` in the dataset (rect
+    batches follow the aspect order, not the file order)."""
     rgbs, irs, ts, ms, shapes = [], [], [], [], []
     for bi, (rgb, ir, labels, shape_info) in enumerate(samples):
         rgbs.append(rgb)
@@ -376,7 +378,8 @@ def collate_batch(samples, max_labels: int = 120) -> dict:
         ms.append(m)
         shapes.append(shape_info)
     out = {"rgb": np.stack(rgbs), "targets": np.concatenate(ts, 0),
-           "tmask": np.concatenate(ms, 0), "shapes": shapes}
+           "tmask": np.concatenate(ms, 0), "shapes": shapes,
+           "index": np.asarray(indices, np.int64)}
     if irs:
         out["ir"] = np.stack(irs)
     return out
@@ -405,7 +408,7 @@ class BatchLoader:
 
     def _assemble(self, batch_idx) -> dict:
         return collate_batch([self.ds.get(int(i)) for i in batch_idx],
-                             self.max_labels)
+                             batch_idx, self.max_labels)
 
     def __iter__(self):
         batches = self._batches()

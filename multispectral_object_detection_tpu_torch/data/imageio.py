@@ -1,12 +1,15 @@
-"""Image files without cv2 or PIL: a PNG reader and writer of its own.
+"""Image files without cv2 or PIL: PNG by a reader and writer of its own,
+JPEG by the port's native decoder (libjpeg or nvJPEG).
 
 The JAX package's loader decodes with ``cv2.imread`` and checks files with
 PIL; neither is installed everywhere the port runs. So ``.png`` always goes
 through the reader below (stdlib ``zlib`` + numpy): 8-bit gray, gray+alpha,
 RGB and RGBA, not interlaced, all five row filters. ``write_png`` emits RGB
-with filter-0 rows. Other formats (JPEG, BMP, ...) go through cv2 where it
-is importable, else PIL, and fail with an error that names both when
-neither is.
+with filter-0 rows. JPEG goes through ``data/native.py``'s decoder where
+libjpeg's headers exist (cv2's pixels) or CUDA's nvJPEG's do, else through
+cv2 or PIL. Other formats (BMP, TIFF, ...) go through cv2 where it is importable,
+else PIL, and fail with an error that names both when neither is.
+``imdecode`` does the same for bytes in memory (an upload).
 
 Images are returned as (H, W, 3) uint8 RGB, what ``cv2.imread(path)[...,
 ::-1]`` gives: gray is replicated to three channels and alpha is dropped.
@@ -109,7 +112,11 @@ def _unfilter_sequential(line: list, prev: list, bpp: int, f: int):
 
 def read_png(path) -> np.ndarray:
     """A PNG file -> (H, W, C) uint8 with its own C (1, 2, 3 or 4)."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 with its own C (1, 2, 3 or 4)."""
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -147,37 +154,55 @@ def write_png(path, img: np.ndarray) -> None:
         + chunk(b"IEND", b""))
 
 
-def _is_png(path) -> bool:
-    with open(path, "rb") as f:
-        return f.read(8) == PNG_SIGNATURE
+def is_jpeg(data: bytes) -> bool:
+    return data[:3] == b"\xff\xd8\xff"
 
 
-def imread(path) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB. Raises FileNotFoundError for a
-    missing file and ImportError for a non-PNG file when neither cv2 nor
-    PIL is installed."""
-    path = str(path)
-    if not Path(path).is_file():
-        raise FileNotFoundError(f"image not found: {path}")
-    if _is_png(path):
-        im = read_png(path)
+def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Encoded image bytes -> (H, W, 3) uint8 RGB. ``name`` labels errors.
+    Raises ImportError for a format that needs cv2 or PIL when neither is
+    installed (JPEG only where no native decoder builds either), and
+    ValueError for bytes no decoder reads."""
+    if data[:8] == PNG_SIGNATURE:
+        im = decode_png(data)
         if im.shape[2] in (1, 2):  # gray (+ alpha)
             return np.repeat(im[:, :, :1], 3, axis=2)
         return np.ascontiguousarray(im[:, :, :3])
+    if is_jpeg(data):
+        from . import native
+
+        if native.jpeg_available():
+            try:
+                return native.decode_jpeg(data)
+            except ValueError as e:
+                raise ValueError(f"{name}: {e}") from None
     try:
         import cv2
     except ImportError:
         cv2 = None
     if cv2 is not None:
-        im = cv2.imread(path)
+        im = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         if im is None:
-            raise ValueError(f"cv2 cannot decode {path}")
+            raise ValueError(f"cv2 cannot decode {name}")
         return np.ascontiguousarray(im[:, :, ::-1])
     try:
         from PIL import Image
     except ImportError:
-        raise ImportError(f"{path}: only PNG is read without cv2 or PIL; "
-                          f"install opencv-python or Pillow for other "
-                          f"formats") from None
-    with Image.open(path) as im:
+        what = ("JPEG needs libjpeg's or nvJPEG's headers (jpeglib.h, "
+                "nvjpeg.h), cv2 or PIL" if is_jpeg(data) else
+                "only PNG and JPEG are read without cv2 or PIL")
+        raise ImportError(f"{name}: {what}; install opencv-python or Pillow "
+                          f"for other formats") from None
+    import io
+
+    with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def imread(path) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB (``imdecode`` of its bytes).
+    Raises FileNotFoundError for a missing file."""
+    path = str(path)
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"image not found: {path}")
+    return imdecode(Path(path).read_bytes(), path)

@@ -81,8 +81,6 @@ def make_eval_forward_tta(model) -> Callable:
     """Test-time augmentation (3 scales, a left-right flip; train/tta.py)
     + decode. Returns (detections, None): the scales' raw outputs differ
     in shape."""
-    if not model.spec.two_stream:
-        raise ValueError("the port's TTA runs two-stream models")
 
     @torch.inference_mode()
     def fwd(rgb, ir):

@@ -45,7 +45,9 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
     hybrid: inject the ground truth as unit-confidence NMS candidates
         (``--save-hybrid``).
     per_image(idx, native_boxes, scores, classes, native_hw): called per
-        image with the NMS output in native pixels.
+        image with the NMS output in native pixels; ``idx`` is the image's
+        dataset position, ``batch["index"]`` (batches without it are taken
+        to be in dataset order).
     confusion: a metrics.ConfusionMatrix accumulated over all images."""
     device = torch.device(device)
     stats = []
@@ -76,6 +78,7 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
                           agnostic=single_cls, max_det=max_det, top_k=top_k,
                           labels=labels, labels_mask=lmask, stats=nms_stats)
         boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
+        index = batch.get("index")
         t2 = time.perf_counter()
         t_infer += t1 - t0
         t_nms += t2 - t1
@@ -106,7 +109,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
                 confusion.process_batch(pb_n, ps, pc.astype(float), tb_n,
                                         tcls.astype(float))
             if per_image is not None:
-                per_image(seen - 1, pb_n, ps, pc, native_hw)
+                per_image(seen - 1 if index is None else int(index[si]),
+                          pb_n, ps, pc, native_hw)
         t_match += time.perf_counter() - t2
 
     t3 = time.perf_counter()

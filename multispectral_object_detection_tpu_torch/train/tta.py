@@ -2,11 +2,13 @@
 
 Counterpart of multispectral_object_detection_tpu/train/tta.py: three
 scales (1, 0.83, 0.67) with flips (none, left-right, none), both modalities
-scaled and flipped together, the decoded boxes mapped back to the original
-canvas and concatenated.
+(or the one of a single-stream model) scaled and flipped together, the
+decoded boxes mapped back to the original canvas and concatenated.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,22 +32,21 @@ def _scale_img(x: torch.Tensor, scale: float, gs: int = 32) -> torch.Tensor:
     return y
 
 
-def tta_forward(model, rgb: torch.Tensor, ir: torch.Tensor,
+def tta_forward(model, rgb: torch.Tensor, ir: Optional[torch.Tensor] = None,
                 gs: int = 32) -> torch.Tensor:
-    """Augmented inference of a two-stream model on (B, 3, H, W) inputs in
-    [0, 1]: decoded detections (B, sum_i N_i, 5+nc) in the original canvas
-    frame."""
+    """Augmented inference on (B, 3, H, W) inputs in [0, 1] (``ir`` None
+    for a single-stream model): decoded detections (B, sum_i N_i, 5+nc) in
+    the original canvas frame."""
     w = rgb.shape[3]
     outs = []
     for scale, flip in zip(SCALES, FLIPS):
-        r, i2 = rgb, ir
+        ins = [rgb] if ir is None else [rgb, ir]
         if flip == "lr":
-            r, i2 = r.flip(-1), i2.flip(-1)
+            ins = [t.flip(-1) for t in ins]
         if scale != 1.0:
-            r, i2 = _scale_img(r, scale, gs), _scale_img(i2, scale, gs)
-        r, i2 = (t.contiguous(memory_format=torch.channels_last)
-                 for t in (r, i2))
-        d = model.decode(model(r, i2))  # (B, N, 5+nc), xywh in scaled pixels
+            ins = [_scale_img(t, scale, gs) for t in ins]
+        ins = [t.contiguous(memory_format=torch.channels_last) for t in ins]
+        d = model.decode(model(*ins))  # (B, N, 5+nc), xywh in scaled pixels
         xy = d[..., :2] / scale
         wh = d[..., 2:4] / scale
         if flip == "lr":

@@ -162,4 +162,7 @@ def load_inference_params(path: Union[str, Path]) -> Dict[str, np.ndarray]:
             isinstance(k, str) and isinstance(v, torch.Tensor)
             for k, v in sd.items()):
         raise ValueError(f"{p}: expected a state dict of tensors")
-    return {k: v.numpy() for k, v in sd.items()}
+    # half-precision tensors are read as fp32 of the same values, as the
+    # msgpack path reads its bfloat16 leaves (numpy has no bfloat16)
+    return {k: (v.float() if v.dtype in (torch.bfloat16, torch.float16)
+                else v).numpy() for k, v in sd.items()}

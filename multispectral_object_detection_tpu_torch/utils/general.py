@@ -1,10 +1,15 @@
 """Helpers of the port's entry points: device selection, image sizes, run
-directories, COCO class ids and the native-space box rescale.
+directories, COCO class ids, the native-space box rescale, box drawing,
+image writing and detection crops.
 
 The port's own copies of the framework-free helpers of
 multispectral_object_detection_tpu/utils/general.py and of
 ``_rescale_to_native`` (multispectral_object_detection_tpu/train/
-evaluator.py), with the same arithmetic.
+evaluator.py), with the same arithmetic. Drawing and writing use cv2 where
+it is importable, as the JAX package does (boxes with labels, JPEG files).
+Without cv2 the boxes are numpy rectangles without labels (cv2.rectangle's
+pixels but for the rounded outer corners of lines thicker than 1) and the
+files are PNG (``data/imageio.write_png``); the first such call logs it.
 """
 
 from __future__ import annotations
@@ -31,6 +36,13 @@ def select_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available: pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def device_from_arg(arg: str) -> torch.device:
+    """A CLI's ``--device``: '' = CUDA (raises without a GPU), 'cpu',
+    'cuda:N' or a CUDA index N."""
+    arg = (arg or "").strip()
+    return select_device(f"cuda:{arg}" if arg.isdigit() else (arg or None))
 
 
 def check_img_size(img_size: int, stride: int = 32) -> int:
@@ -82,3 +94,91 @@ def rescale_to_native(boxes: np.ndarray, canvas_hw, native_hw,
     out[:, [0, 2]] = out[:, [0, 2]].clip(0, native_hw[1])
     out[:, [1, 3]] = out[:, [1, 3]].clip(0, native_hw[0])
     return out
+
+
+_NO_CV2_NOTED = False
+
+
+def _cv2():
+    """cv2 where it is importable, else None (noted once in the log)."""
+    global _NO_CV2_NOTED
+    try:
+        import cv2
+        return cv2
+    except ImportError:
+        if not _NO_CV2_NOTED:
+            _NO_CV2_NOTED = True
+            logger.info("cv2 is not installed: boxes are drawn without "
+                        "labels and images are written as PNG")
+        return None
+
+
+def _rectangle(img: np.ndarray, p1, p2, color, thickness: int) -> None:
+    """cv2.rectangle's outline in numpy: a band of +-(t+1)//2 pixels about
+    each edge (the edge itself for t = 1), square where cv2 rounds the
+    outer corners."""
+    (x1, x2), (y1, y2) = sorted((p1[0], p2[0])), sorted((p1[1], p2[1]))
+    h, w = img.shape[:2]
+    a = 0 if thickness <= 1 else (thickness + 1) // 2
+    for ya, yb, xa, xb in ((y1 - a, y1 + a, x1 - a, x2 + a),
+                           (y2 - a, y2 + a, x1 - a, x2 + a),
+                           (y1 - a, y2 + a, x1 - a, x1 + a),
+                           (y1 - a, y2 + a, x2 - a, x2 + a)):
+        ya, yb, xa, xb = max(ya, 0), min(yb, h - 1), max(xa, 0), min(xb, w - 1)
+        if ya <= yb and xa <= xb:
+            img[ya:yb + 1, xa:xb + 1] = color
+
+
+def draw_box(img: np.ndarray, xyxy, color, thickness: int = 2,
+             label=None) -> None:
+    """Draw a box (and with cv2 its label above it, cv2.FONT_HERSHEY_SIMPLEX
+    at 0.6) on an HWC uint8 image in place, in the image's channel order."""
+    p1, p2 = (int(xyxy[0]), int(xyxy[1])), (int(xyxy[2]), int(xyxy[3]))
+    cv2 = _cv2()
+    if cv2 is None:
+        _rectangle(img, p1, p2, color, thickness)
+        return
+    cv2.rectangle(img, p1, p2, color, thickness)
+    if label:
+        cv2.putText(img, label, (p1[0], p1[1] - 4), cv2.FONT_HERSHEY_SIMPLEX,
+                    0.6, color, thickness)
+
+
+def write_image(path, img_rgb: np.ndarray) -> Path:
+    """Write an RGB image: JPEG at ``path`` through cv2, else PNG beside it
+    (same stem). Returns the path written."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    cv2 = _cv2()
+    if cv2 is None:
+        from ..data.imageio import write_png
+
+        path = path.with_suffix(".png")
+        write_png(path, img_rgb)
+    else:
+        cv2.imwrite(str(path), np.ascontiguousarray(img_rgb[..., ::-1]))
+    return path
+
+
+def save_one_box(xyxy, im: np.ndarray, file="image.jpg", gain: float = 1.02,
+                 pad: int = 10, square: bool = False, bgr: bool = False,
+                 save: bool = True) -> np.ndarray:
+    """Crop a detection from ``im`` (HWC RGB; BGR when ``bgr``) with the
+    reference's margin rule (general.py:628-640): box wh * gain + pad px,
+    optionally square. Returns the crop; writes it (``write_image``) when
+    ``save``."""
+    x1, y1, x2, y2 = [float(v) for v in xyxy]
+    cx, cy = (x1 + x2) / 2.0, (y1 + y2) / 2.0
+    w, h = x2 - x1, y2 - y1
+    if square:
+        w = h = max(w, h)
+    w, h = w * gain + pad, h * gain + pad
+    x1, x2 = int(cx - w / 2), int(cx + w / 2)
+    y1, y2 = int(cy - h / 2), int(cy + h / 2)
+    x1, x2 = max(x1, 0), min(x2, im.shape[1])
+    y1, y2 = max(y1, 0), min(y2, im.shape[0])
+    crop = im[y1:y2, x1:x2]
+    if save and crop.size:
+        write_image(Path(file).with_suffix(".jpg"),
+                    crop[..., ::-1] if bgr else crop)
+    return crop

@@ -114,3 +114,33 @@ def jax_fused_forward():
         return raw, model.decode(raw)
 
     return fwd
+
+
+@functools.lru_cache(maxsize=None)
+def mini_single_weights(seed: int) -> dict:
+    """The n-scale single-stream YOLOv5 (nc=2) with ``random_state_dict``
+    weights from ``seed``: ``cfg``, ``sd`` and the JAX trees
+    ``params``/``stats`` (unfused). Callers must not modify them."""
+    from multispectral_object_detection_tpu.utils.torch_import import (
+        convert_state_dict)
+    from multispectral_object_detection_tpu_torch.models import configs
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model)
+
+    cfg = configs.yolov5("n", nc=2)
+    sd = random_state_dict(build_model(cfg), seed)
+    params, stats = convert_state_dict(sd)
+    return dict(cfg=cfg, sd=sd, params=params, stats=stats)
+
+
+def write_jax_checkpoint(directory, params, stats) -> str:
+    """A stripped JAX checkpoint directory (``model.msgpack``)."""
+    from pathlib import Path
+
+    from flax import serialization
+
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "model.msgpack").write_bytes(serialization.msgpack_serialize(
+        {"params": params, "batch_stats": stats}))
+    return str(d)

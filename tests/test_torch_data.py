@@ -179,8 +179,10 @@ def test_batches_equal_the_jax_loader_byte_for_byte(png_set, img_size, rect):
     jl = JaxBatchLoader(jds, 4, shuffle=False, max_labels=6, drop_last=False)
     tl = BatchLoader(tds, 4, max_labels=6)
     n = 0
-    for got, want in zip(tl, jl):
-        assert set(got) == set(want)
+    for got, want, idx in zip(tl, jl, tl._batches()):
+        # the port's batches also carry each sample's dataset index
+        assert set(got) == set(want) | {"index"}
+        np.testing.assert_array_equal(got["index"], idx)
         for k in ("rgb", "ir", "targets", "tmask"):
             assert got[k].dtype == want[k].dtype
             np.testing.assert_array_equal(got[k], want[k])
@@ -287,3 +289,20 @@ def test_load_inference_params_reads_both_checkpoint_forms(tmp_path):
         np.testing.assert_array_equal(back[k], sd[k].numpy())
     with pytest.raises(FileNotFoundError):
         checkpoint.load_inference_params(tmp_path)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_precision_pt_state_dict_loads_as_fp32(tmp_path, dtype):
+    """A ``.pt`` state dict saved in bf16 or fp16 reads as the fp32 values
+    of its tensors, as the msgpack path reads bf16 leaves; other dtypes
+    keep theirs."""
+    rng = np.random.default_rng(4)
+    sd = {"model.0.conv.weight": torch.from_numpy(
+              rng.standard_normal((8, 3, 3, 3)).astype(np.float32)).to(dtype),
+          "model.1.bn.num_batches_tracked": torch.tensor(3)}
+    torch.save(sd, tmp_path / "half.pt")
+    got = checkpoint.load_inference_params(tmp_path / "half.pt")
+    w = got["model.0.conv.weight"]
+    assert w.dtype == np.float32
+    np.testing.assert_array_equal(w, sd["model.0.conv.weight"].float().numpy())
+    assert got["model.1.bn.num_batches_tracked"].dtype == np.int64

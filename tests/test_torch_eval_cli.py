@@ -10,6 +10,7 @@ and the ``--save-txt --save-conf`` files line for line to 1e-4. Also the
 CLI's guards: no GPU without ``--device cpu``, the flags of later slices,
 and the single-checkpoint flags."""
 
+import json
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -17,19 +18,20 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from flax import serialization
 
 from multispectral_object_detection_tpu.cli.test_cli import main as jax_main
 from multispectral_object_detection_tpu.ops import ds_fusion as jds
 from multispectral_object_detection_tpu_torch import hub
 from multispectral_object_detection_tpu_torch.cli import test_cli
+from multispectral_object_detection_tpu_torch.data.imageio import write_png
 from multispectral_object_detection_tpu_torch.data.synthetic import (
     make_paired_dataset)
 from multispectral_object_detection_tpu_torch.models import configs
 from multispectral_object_detection_tpu_torch.train import eval_forward
 from multispectral_object_detection_tpu_torch.train.tta import tta_forward
 from tests._torch_port import (  # noqa: F401
-    jax_fused_forward, mini_weights, share_torch_threads)
+    jax_fused_forward, mini_single_weights, mini_weights,
+    share_torch_threads, write_jax_checkpoint)
 
 CFG, NC, IMG = "yolov5n_fusion_transformerx3", 2, 64
 TOL = 1e-4  # fp32 forwards: max |port - jax| / max |jax|
@@ -43,14 +45,8 @@ def ws(tmp_path_factory):
     cfg = configs.get_config(CFG, nc=NC)
     members = [mini_weights(seed) for seed in (0, 1)]
     assert all(m["cfg"] == cfg for m in members)
-    ckpts = []
-    for i, m in enumerate(members):
-        params, stats = m["params"], m["stats"]
-        d = root / f"ckpt{i}"
-        d.mkdir()
-        (d / "model.msgpack").write_bytes(serialization.msgpack_serialize(
-            {"params": params, "batch_stats": stats}))
-        ckpts.append(str(d))
+    ckpts = [write_jax_checkpoint(root / f"ckpt{i}", m["params"], m["stats"])
+             for i, m in enumerate(members)]
     rgb, ir = make_paired_dataset(str(root / "data"), n_images=8,
                                   img_size=IMG, nc=NC, seed=5)
     data = {"train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
@@ -244,3 +240,114 @@ def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
 def test_single_checkpoint_flags_refuse_an_ensemble(ws, flag):
     with pytest.raises(SystemExit, match="single-checkpoint"):
         _port(ws, ["--weights"] + ws["ckpts"] + [flag])
+
+
+def _index_coded_set(root: Path, n: int = 8):
+    """n PNG pairs, the first half portrait (64x48), the rest landscape
+    (48x64); image k is the constant 20k + 10 and holds one label of class
+    k. Under rect batches the loader serves them in aspect order."""
+    for side in ("rgb", "ir"):
+        (root / side / "images").mkdir(parents=True)
+        (root / side / "labels").mkdir(parents=True)
+    for k in range(n):
+        hw = (64, 48) if k < n // 2 else (48, 64)
+        for side in ("rgb", "ir"):
+            write_png(root / side / "images" / f"{k:06d}.png",
+                      np.full(hw + (3,), 20 * k + 10, np.uint8))
+            (root / side / "labels" / f"{k:06d}.txt").write_text(
+                f"{k} 0.5 0.5 1 1\n")
+    return {"val_rgb": str(root / "rgb" / "images"),
+            "val_ir": str(root / "ir" / "images"), "nc": n,
+            "names": [str(k) for k in range(n)]}
+
+
+def _index_coded_forward(rgb, ir):
+    """One full-canvas candidate per image whose class is read from the
+    image's pixel value (20k + 10 -> k)."""
+    B, H, W = rgb.shape[:3]
+    k = (rgb[:, H // 2, W // 2, 0].long() - 10) // 20
+    det = torch.zeros(B, 1, 5 + 8)
+    det[:, 0, :5] = torch.tensor([W / 2, H / 2, W, H, 1.0])
+    det[torch.arange(B), 0, 5 + k] = 1.0
+    return det, None
+
+
+@pytest.mark.parametrize("rect", [True, False])
+def test_saved_txt_files_and_json_ids_follow_the_dataset_order(
+        tmp_path, monkeypatch, rect):
+    """Rect batches (the default) serve 4 landscape before 4 portrait
+    pairs: each txt file and COCO record still belongs to its own image,
+    with its own native size."""
+    data = _index_coded_set(tmp_path / "data")
+    monkeypatch.setattr(test_cli, "build_forward",
+                        lambda *a: (None, _index_coded_forward))
+    args = test_cli.parse_args(
+        ["--device", "cpu", "--data", "dict", "--weights", "none",
+         "--img-size", "64", "--batch-size", "4", "--save-txt",
+         "--save-coco", str(tmp_path / "coco.json"), "--project",
+         str(tmp_path / "runs"), "--name", "x"]
+        + ([] if rect else ["--no-rect"]))
+    args.data = data
+    order = []
+    real_loader = test_cli.make_loader
+
+    def loader_spy(*a):
+        ds, loader = real_loader(*a)
+        order.extend(np.concatenate(loader._batches()).tolist())
+        return ds, loader
+
+    monkeypatch.setattr(test_cli, "make_loader", loader_spy)
+    res = test_cli.run(args)
+    assert res["seen"] == 8 and res["map50"] > 0.99
+    assert (order != list(range(8))) == rect  # rect reorders the images
+    for k in range(8):
+        lines = (tmp_path / "runs" / "x" / "labels" /
+                 f"{k:06d}.txt").read_text().split()
+        assert lines == [str(k), "0.5", "0.5", "1", "1"], (k, lines)
+    records = json.loads((tmp_path / "coco.json").read_text())
+    assert sorted(r["image_id"] for r in records) == list(range(8))
+    for r in records:
+        k = r["image_id"]
+        w0, h0 = (48, 64) if k < 4 else (64, 48)
+        assert r["category_id"] == k and r["bbox"] == [0, 0, w0, h0], r
+    assert res["coco"]["AP"] > 0.99
+
+
+def test_tta_forward_single_stream_matches_jax():
+    """A single-stream model through the port's TTA against JAX's
+    ``tta_forward(..., ir=None)`` on the same weights: max |port - jax| /
+    max |jax| <= TOL (fp32)."""
+    import jax
+
+    from multispectral_object_detection_tpu.models import (
+        build_model as jax_build)
+    from multispectral_object_detection_tpu.train.tta import (
+        tta_forward as jax_tta)
+
+    m = mini_single_weights(0)
+    rgb = np.random.default_rng(3).integers(0, 256, (2, IMG, IMG, 3),
+                                            dtype=np.uint8)
+    jmodel = jax_build(m["cfg"])
+    want = jax.jit(lambda p, s, x: jax_tta(jmodel, p, s, x / 255.0))(
+        m["params"], m["stats"], rgb.astype(np.float32))
+    model = hub.create(m["cfg"], 2, state_dict=m["sd"], dtype=torch.float32,
+                       device="cpu")
+    got, none = eval_forward.make_eval_forward_tta(model)(
+        torch.from_numpy(rgb), torch.from_numpy(rgb))
+    assert none is None
+    _close(got, want)
+
+
+def test_port_cli_augment_on_a_single_stream_model(ws, tmp_path):
+    """``--augment`` on a single-stream config and data without an IR
+    side."""
+    m = mini_single_weights(0)
+    ckpt = write_jax_checkpoint(tmp_path / "ck", m["params"], m["stats"])
+    args = test_cli.parse_args(
+        ["--device", "cpu", "--data", "dict", "--cfg", "yolov5n",
+         "--weights", ckpt, "--img-size", str(IMG), "--batch-size", "4",
+         "--fp32", "--augment", "--conf-thres", "0.1", "--project",
+         str(tmp_path / "runs")])
+    args.data = {"val": ws["small"]["val_rgb"], "nc": NC}
+    r = test_cli.run(args)
+    assert r["seen"] == 4 and np.isfinite([r["map50"], r["map"]]).all()

@@ -1,5 +1,6 @@
 """PyTorch port, guards: the package stands alone (no JAX, no flax, nothing
-of the JAX package, no yaml, cv2 or PIL at import), its entry points
+of the JAX package, no yaml, cv2, PIL or flask at import), its entry points
+(``Detector`` and its ``__call__``, the detect CLI, the REST service)
 default to CUDA and refuse to fall back to the CPU, and chip_smoke.py fails
 without a GPU."""
 
@@ -11,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from multispectral_object_detection_tpu_torch import kernels
+from multispectral_object_detection_tpu_torch import hubconf, kernels
+from multispectral_object_detection_tpu_torch.cli import detect_cli
 from multispectral_object_detection_tpu_torch.hub import Detector
 from multispectral_object_detection_tpu_torch.models.configs import (
     yolov5_two_stream)
+from multispectral_object_detection_tpu_torch.serve import rest_api
 from multispectral_object_detection_tpu_torch.utils.general import (
     select_device)
 from tests._torch_port import share_torch_threads  # noqa: F401
@@ -23,7 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "yaml", "cv2", "PIL"):
+for name in ("jax", "flax", "yaml", "cv2", "PIL", "flask"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import multispectral_object_detection_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -40,7 +43,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 36  # every module of the package
+    assert int(r.stdout.split()[-1]) >= 43  # every module of the package
 
 
 def _require_no_cuda():
@@ -52,6 +55,21 @@ def test_detector_without_device_refuses_the_cpu():
     _require_no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         Detector()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hubconf.cft_s(nc=1, img_size=64)
+    det = hubconf.cft_s(nc=1, img_size=64, device="cpu", conf=0.9)
+    img = np.zeros((48, 64, 3), np.uint8)
+    assert len(det([img], [img])) == 1  # __call__ runs where it was asked
+
+
+def test_detect_cli_and_rest_without_device_refuse_the_cpu(tmp_path, capsys):
+    _require_no_cuda()
+    rc = detect_cli.main(["--weights", "w.pt", "--source1", str(tmp_path),
+                          "--project", str(tmp_path / "runs")])
+    assert rc == 1 and "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rest_api.main(["--model", "yolov5n", "--port", "0"])
 
 
 @pytest.mark.parametrize("device,want", [(None, None), ("cuda", None),
