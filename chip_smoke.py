@@ -67,7 +67,20 @@ failure raises and the script exits non-zero:
    PyTorch library call for the same function; LayerNorm and attention at
    the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
    K2's two launches apart; the main path's ms per batch and its profile.
-8. a ``{"kernels": [...]}`` line, the card line, and the final
+8. training (about two minutes): one fp32 train step of the n-scale
+   two-stream CFT (nc=2, 128 px, batch 2, dropout off, TF32 off) on the
+   card against the CPU (loss and every gradient); one bf16 step of the
+   l model at 640, batch 8, with remat none and blocks (equal loss and
+   BatchNorm statistics, a nonzero gradient on every CFT weight); the
+   port's training bench (``bench_train``) for both, 20 steps on one
+   repeated batch of synthetic pairs (ms per step, images/s, peak GB, a
+   falling loss); the train CLI for 2 epochs of the l model at 640, batch 8,
+   on 16 synthetic PNG pairs (K1's 168 launches per eval forward of the EMA
+   model, and K1 against its plain twin on the trained EMA weights), its
+   ``--resume`` at epoch 2, the stripped checkpoint through the test CLI
+   with ``--compute-loss``, and the detect CLI's ``--update``; a
+   ``{"train": {...}}`` line.
+9. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -1221,6 +1234,370 @@ def profile_forward(torch, fn, label: str, runs: int = 2) -> None:
               f"x{e.count // runs:<4} {e.key[:90]}")
 
 
+# training phase: the mini model of the card-vs-CPU step, the full-width
+# steps, and the train CLI's run
+TRAIN_MINI_IMG, TRAIN_MINI_BATCH = 128, 2
+TRAIN_IMG, TRAIN_BATCH, TRAIN_STEPS = 640, 8, 20
+TRAIN_CLI_IMAGES = 16
+# fp32 card vs CPU, TF32 off: the same function rounded in another order.
+# This random-weight model's gradients move by up to 1e-4 of their largest
+# value when its weights move by one part in 1e7 (CPU measurement at 128 px,
+# batch 2), so a few times that; gradients that are analytically zero (the
+# key projection's bias: softmax is shift-invariant) are held against
+# 1e-3 of the largest gradient of the model
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+# one bf16 step with remat none and blocks: the same forward ops, so the
+# loss and the BatchNorm statistics agree up to cuDNN's choice of algorithm
+TOL_REMAT = 1e-3
+
+
+def _grad_errors(grads, refs) -> list:
+    """Per tensor max|got - ref| / max(max|ref|, 1e-3 * the largest |ref|
+    of all tensors)."""
+    big = max(float(r.abs().max()) for r in refs)
+    return [float((g.cpu() - r).abs().max())
+            / max(float(r.abs().max()), 1e-3 * big) for g, r in
+            zip(grads, refs)]
+
+
+def _mini_step_grads(torch, device, weights, batch):
+    """One fp32 train-mode forward + loss + gradients of the n-scale
+    two-stream CFT (nc=2), dropout off, on ``device``."""
+    from multispectral_object_detection_tpu_torch.models import configs
+    from multispectral_object_detection_tpu_torch.models.detect import (
+        anchor_arrays)
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model)
+    from multispectral_object_detection_tpu_torch.train.loss import (
+        DetectionLoss)
+
+    model = build_model(configs.yolov5_two_stream("n", nc=2,
+                                                  fusion="transformerx3"))
+    model.load_state_dict(weights)
+    for m in model.modules():
+        if isinstance(m, CrossModalFusion):
+            m.embd_drop = m.attn_drop = m.resid_drop = 0.0
+    model = model.to(device).train()
+    loss_fn = DetectionLoss(2, anchor_arrays(model.spec.anchors),
+                            model.spec.strides)
+    rgb, ir, tg, tm = (torch.from_numpy(a).to(device) for a in batch)
+    xs = [t.permute(0, 3, 1, 2).float() / 255.0 for t in (rgb, ir)]
+    total, comps = loss_fn(model(*xs), tg, tm)
+    params = list(model.parameters())
+    grads = torch.autograd.grad(total, params)
+    return float(total), [g.detach().cpu() for g in grads]
+
+
+def _remat_one_step(torch, device, remat: str, batch):
+    """One bf16 step of the l model with ``remat``; the loss and the
+    BatchNorm running statistics after it."""
+    from multispectral_object_detection_tpu_torch import bench_train
+
+    args = bench_train.parse_args(["--remat", remat, "--img",
+                                   str(TRAIN_IMG), "--batch",
+                                   str(TRAIN_BATCH)])
+    state, step, _ = bench_train.prepare(args)
+    m = step(*batch, seed=0)
+    stats = {k: v.float().clone() for k, v in state.model.state_dict().items()
+             if "running_" in k}
+    grads = {}
+    if remat == "none":  # the gradients the optimizer got, by name
+        seen = []
+        update = state.opt.update
+        state.opt.update = lambda g: (seen.append(list(g)), update(g))[1]
+        step(*batch, seed=1)
+        grads = dict(zip(state.opt.names, seen[0]))
+    total = float(m["total"])
+    del state, step
+    torch.cuda.empty_cache()
+    return total, stats, grads
+
+
+def _profile_train_steps(torch, step, batch, runs: int = 2) -> dict:
+    """Wall time and device busy time of ``runs`` train steps
+    (torch.profiler), by kind of kernel; the idle share is 1 - busy / wall.
+    The profiler's own host cost lengthens the wall time a little."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = {  # first match wins
+        "convolution": ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                        "xmma", "cudnn"),
+        "batch norm": ("batch_norm",),
+        "optimizer and EMA (foreach)": ("multi_tensor_apply",),
+        "matmul": ("gemm", "cutlass", "sm90"),
+        "loss gather and scatter": ("index", "scatter"),
+        "elementwise": ("elementwise",),
+        "reductions": ("reduce",),
+        "copy/cat/resize": ("copy", "cat", "upsample", "interp"),
+    }
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(runs):
+            step(*batch, seed=1000 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
+    per_kind = {k: 0.0 for k in kinds}
+    per_kind["other"] = 0.0
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in name for p in pats)), "other")
+        per_kind[kind] += e.self_device_time_total / 1e3 / runs
+    launches = sum(e.count for e in kernels) // runs
+    print(f"      profile ({runs} steps, torch.profiler): {wall:.3f} ms per "
+          f"step, {busy:.3f} ms of kernels ({launches} launches), device idle "
+          f"{100 * (1 - busy / wall):.1f} %; " + ", ".join(
+              f"{k} {v:.3f}" for k, v in per_kind.items()))
+    return {"profiled_ms_per_step": wall, "device_busy_ms": busy,
+            "launches_per_step": launches, "by_kind_ms": per_kind}
+
+
+def phase_train(torch, device, card: str) -> dict:
+    """Phase 8: training on the card. Returns the numbers for its JSON
+    line."""
+    from multispectral_object_detection_tpu_torch import bench_train
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from multispectral_object_detection_tpu_torch.models import configs
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, init_weights)
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    # 1. card against CPU on the mini model, fp32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mini = build_model(configs.yolov5_two_stream("n", nc=2,
+                                                     fusion="transformerx3"))
+        init_weights(mini, torch.Generator().manual_seed(3))
+        weights = mini.state_dict()
+        batch = synthetic_batch(TRAIN_MINI_BATCH, TRAIN_MINI_IMG, nc=2,
+                                max_labels=16, seed=3)
+        l_cpu, g_cpu = _mini_step_grads(torch, torch.device("cpu"), weights,
+                                        batch)
+        l_gpu, g_gpu = _mini_step_grads(torch, device, weights, batch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel = max(_grad_errors(g_gpu, g_cpu))
+    print(f"  8.1 mini fp32 step, card vs CPU: loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f} (rel {loss_rel:.3g}), worst gradient rel "
+          f"{grad_rel:.3g} [{card}]")
+    check(loss_rel <= TOL_TRAIN_LOSS, f"mini step loss rel {loss_rel:.3g}")
+    check(grad_rel <= TOL_TRAIN_GRAD, f"mini step gradient rel {grad_rel:.3g}")
+    out["mini_loss_rel"], out["mini_grad_rel"] = loss_rel, grad_rel
+
+    # 2. full width: one step under none and blocks, then the bench
+    dev_batch = tuple(torch.from_numpy(a).to(device) for a in synthetic_batch(
+        TRAIN_BATCH, TRAIN_IMG, 3, 64, seed=0))
+    l_none, s_none, grads = _remat_one_step(torch, device, "none", dev_batch)
+    l_blk, s_blk, _ = _remat_one_step(torch, device, "blocks", dev_batch)
+    d_loss = abs(l_blk - l_none) / abs(l_none)
+    d_stats = max(float((s_blk[k] - s_none[k]).abs().max()
+                        / s_none[k].abs().max().clamp(min=1e-12))
+                  for k in s_none)
+    print(f"  8.2 one l@{TRAIN_IMG} bs{TRAIN_BATCH} bf16 step: loss none "
+          f"{l_none:.6f} blocks {l_blk:.6f} (rel {d_loss:.3g}); BatchNorm "
+          f"statistics after it, worst rel {d_stats:.3g} [{card}]")
+    check(d_loss <= TOL_REMAT and d_stats <= TOL_REMAT,
+          "remat blocks changed the step's loss or BatchNorm statistics")
+    cft = {n: g for n, g in grads.items()
+           if ".trans_blocks." in n and n.endswith(".weight")}
+    zero = [n for n, g in cft.items()
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    print(f"  8.2 CFT weights with a nonzero finite gradient: "
+          f"{len(cft) - len(zero)} of {len(cft)}")
+    check(len(cft) == 3 * 8 * 8 and not zero,
+          f"CFT weights without a gradient: {zero[:4]}")
+    del grads, cft
+    out["remat_loss_rel"], out["remat_stats_rel"] = d_loss, d_stats
+    for remat in ("none", "blocks"):
+        args = bench_train.parse_args(["--remat", remat, "--img",
+                                       str(TRAIN_IMG), "--batch",
+                                       str(TRAIN_BATCH), "--steps",
+                                       str(TRAIN_STEPS)])
+        base = bench_train.allocated(device)
+        state, step, batch = bench_train.prepare(args)
+        r = bench_train.measure(args, state, step, batch, base_bytes=base)
+        prof = _profile_train_steps(torch, step, batch)
+        # the step reads nothing back to the host (a CUDA graph could
+        # capture it): CUDA's sync debug mode raises on a synchronising call
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*batch, seed=2000)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"      one step under CUDA sync debug mode 'error': no host "
+              f"sync (remat {remat})")
+        del state, step, batch
+        losses = r["losses"]
+        check(all(math.isfinite(v) for v in losses),
+              f"remat {remat}: a loss is not finite")
+        k = 5
+        falling = sum(losses[-k:]) / k < sum(losses[:k]) / k
+        print(f"  8.2 bench_train remat={remat}: {r['ms_per_step']:.3f} ms "
+              f"per step ({r['host_ms_per_step']:.3f} ms of it to enqueue "
+              f"on the host), {r['images_per_s']:.2f} images/s, peak "
+              f"{r['peak_gb']:.2f} GB (state {r['state_gb']:.2f} GB, "
+              f"without {base / 1e9:.2f} GB held by earlier phases); loss "
+              f"{losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} over {len(losses)} steps [{r['card']}]")
+        check(falling, f"remat {remat}: the loss did not fall "
+              f"({losses[:k]} -> {losses[-k:]})")
+        out[remat] = {k2: r[k2] for k2 in ("ms_per_step", "images_per_s",
+                                            "peak_gb", "state_gb",
+                                            "host_ms_per_step")}
+        out[remat].update(prof)
+        out[remat]["loss_first_last"] = [losses[0], losses[-1]]
+        torch.cuda.empty_cache()
+    out["cli"] = _train_cli_runs(torch, device, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _train_cli_runs(torch, device, card: str) -> dict:
+    """Phase 8.3: the train CLI (2 epochs of the l model at 640, batch 8,
+    16 synthetic PNG pairs), its resume, the stripped checkpoint through the
+    test CLI with --compute-loss and the detect CLI's --update, and K1
+    against its plain twin on the trained EMA weights."""
+    from multispectral_object_detection_tpu_torch.cli import (detect_cli,
+                                                               test_cli,
+                                                               train_cli)
+    from multispectral_object_detection_tpu_torch.data.datasets import (
+        BatchLoader, PairedDetectionDataset)
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, load_reference_state_dict)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.utils.checkpoint import (
+        load_inference_params)
+
+    cfg_name = "yolov5l_fusion_transformerx3"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    out = {}
+    try:
+        rgb_dir, ir_dir = make_paired_dataset(str(tmp / "data"),
+                                              n_images=TRAIN_CLI_IMAGES,
+                                              img_size=TRAIN_IMG, nc=2,
+                                              seed=7)
+        data = {"train_rgb": rgb_dir, "train_ir": ir_dir, "val_rgb": rgb_dir,
+                "val_ir": ir_dir, "nc": 2, "names": ["red", "blue"]}
+        common = ["--data", "unused", "--cfg", cfg_name, "--img-size",
+                  str(TRAIN_IMG), "--batch-size", str(TRAIN_BATCH),
+                  "--project", str(tmp / "runs")]
+
+        def train(argv):
+            args = train_cli.parse_args(common + argv)
+            args.data = data
+            return train_cli.run(args)
+
+        cs.reset_launches()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        r = train(["--epochs", "2", "--name", "exp"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run = Path(r["save_dir"])
+        lines = (run / "results.txt").read_text().splitlines()
+        k1 = sum(cs.LAUNCHES.values())
+        print(f"  8.3 train CLI, 2 epochs of l@{TRAIN_IMG} bs{TRAIN_BATCH} "
+              f"over {TRAIN_CLI_IMAGES} pairs in {secs:.1f} s [{card}]")
+        for ln in lines:
+            print(f"      {ln}")
+        check(len(lines) == 2 and all("mAP50" in ln for ln in lines),
+              "results.txt lacks an epoch's eval")
+        check(r["eval_forwards"] > 0 and k1 == 168 * r["eval_forwards"],
+              f"K1 launches {k1} != 168 x {r['eval_forwards']} eval forwards")
+        check(sum(k2.LAUNCHES.values()) == 0, "K2 launched in training")
+        print(f"  8.3 per-epoch eval: {r['eval_forwards']} EMA forwards, "
+              f"{k1} K1 launches (168 per forward)")
+        out.update(seconds=secs, eval_forwards=r["eval_forwards"],
+                   k1_launches=k1, results=lines)
+
+        # K1 against its plain twin on the trained EMA weights, eval batch
+        model = build_model(get_config(cfg_name, nc=2), dtype=torch.bfloat16)
+        load_reference_state_dict(model, load_inference_params(run / "last"))
+        model = model.to(device).to(memory_format=torch.channels_last).eval()
+        ds = PairedDetectionDataset.from_sources(rgb_dir, ir_dir,
+                                                 img_size=TRAIN_IMG)
+        batch = next(iter(BatchLoader(ds, TRAIN_BATCH)))
+        xs = [torch.from_numpy(batch[k]).to(device).permute(0, 3, 1, 2)
+              .float() / 255.0 for k in ("rgb", "ir")]
+        stages = [m for m in model.modules()
+                  if isinstance(m, CrossModalFusion)]
+        with torch.inference_mode():
+            raw_k = model(*xs)
+            for m in stages:
+                m.stack_fn = cs.fused_cft_stack_plain
+            raw_p = model(*xs)
+        worst = max(rel_err(a, b)[0] for a, b in zip(raw_k, raw_p))
+        print(f"  8.3 trained EMA weights, eval batch: K1 vs plain stack, "
+              f"raw head outputs rel {worst:.3e} (tol {TOL_BF16_MODEL:.0e})")
+        check(worst <= TOL_BF16_MODEL, f"K1 on trained weights: {worst:.3e}")
+        out["k1_vs_plain_rel"] = worst
+        del model, raw_k, raw_p
+
+        # resume at epoch 2
+        r2 = train(["--epochs", "3", "--resume", str(run / "last"),
+                    "--noval", "--name", "resumed"])
+        lines2 = (Path(r2["save_dir"]) / "results.txt").read_text() \
+            .splitlines()
+        print(f"  8.3 --resume {run.name}/last: {lines2}")
+        check([ln.split()[1] for ln in lines2] == ["2/2"],
+              "--resume did not continue at epoch 2")
+
+        # the stripped checkpoint through the test CLI, with the val loss
+        targs = test_cli.parse_args(["--data", "unused", "--cfg", cfg_name,
+                                     "--weights", str(run / "last"),
+                                     "--img-size", str(TRAIN_IMG),
+                                     "--batch-size", str(TRAIN_BATCH),
+                                     "--compute-loss"])
+        targs.data = data
+        ev = test_cli.run(targs)
+        print(f"  8.3 test CLI on {run.name}/last/model.pt: mAP50 "
+              f"{ev['map50']:.4f}, val loss [box, obj, cls] "
+              f"{ev['val_loss']}")
+        check(ev["seen"] == TRAIN_CLI_IMAGES
+              and all(math.isfinite(v) for v in ev["val_loss"]),
+              "test CLI on the stripped checkpoint")
+        out["val_loss"] = ev["val_loss"]
+
+        # detect --update strips the resumed run's training state
+        last2 = Path(r2["save_dir"]) / "last"
+        (last2 / "model.pt").unlink()
+        dargs = detect_cli.parse_args([
+            "--cfg", cfg_name, "--nc", "2", "--weights", str(last2),
+            "--source1", rgb_dir, "--source2", ir_dir, "--img-size",
+            str(TRAIN_IMG), "--nosave", "--update", "--project",
+            str(tmp / "det")])
+        d = detect_cli.run(dargs)
+        check((last2 / "model.pt").is_file(), "--update wrote no model.pt")
+        print(f"  8.3 detect CLI --update on {last2.parent.name}/last: "
+              f"{d['n_images']} pairs, model.pt written")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1264,6 +1641,10 @@ def main() -> int:
           "served through the kernels")
     rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
                                stages, card)
+    del det, batches, stages
+    torch.cuda.empty_cache()
+    train = phase_train(torch, device, card)
+    print(f"phase 8: training on the card in {train['seconds']:.1f} s")
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -1275,6 +1656,7 @@ def main() -> int:
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"eval": eval_runs}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,11 @@ is folded into the box ratio. ``--device`` defaults to CUDA and fails
 without a GPU; ``--device cpu`` runs on the CPU. ``run`` returns
 {"n_images", "n_det", "fps", "fps_steady"}.
 
-Divergences from the JAX CLI: ``--nc`` defaults to the config's own class
-count (the JAX default of 1 overrides it); ``--update`` exits with the
-ROADMAP item that brings checkpoint saving.
+``--update`` strips each checkpoint directory of ``--weights`` to its EMA
+weights (``model.pt``, utils/checkpoint.strip_checkpoint) after the run.
+
+Divergence from the JAX CLI: ``--nc`` defaults to the config's own class
+count (the JAX default of 1 overrides it).
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ logger = logging.getLogger(__name__)
 # are RGB, so they are drawn reversed and the written files agree
 PALETTE = [(255, 56, 56), (56, 168, 255), (56, 255, 106), (255, 200, 56),
            (186, 56, 255), (255, 112, 31), (56, 255, 255), (255, 56, 170)]
-UPDATE_MSG = ("--update strips a checkpoint to inference-only, which needs "
-              "checkpoint saving; that comes with the training path "
-              "(ROADMAP queue 1, item 5)")
 
 
 def parse_args(argv=None):
@@ -101,7 +100,9 @@ def parse_args(argv=None):
                     help="'' = cuda (fails without a GPU), 'cpu', 'cuda:N' "
                          "or a CUDA index N")
     ap.add_argument("--update", action="store_true",
-                    help="not ported yet: " + UPDATE_MSG)
+                    help="strip the checkpoint directories of --weights to "
+                         "inference-only (model.pt, the EMA weights) after "
+                         "the run")
     ap.add_argument("--view-img", action="store_true",
                     help="accepted for compatibility; results are written "
                          "to the run dir")
@@ -196,7 +197,10 @@ def run(args) -> dict:
                                  increment_path, save_one_box, write_image)
 
     if args.update:
-        raise SystemExit(f"detect_cli: {UPDATE_MSG}")
+        files = [w for w in args.weights if not Path(w).is_dir()]
+        if files:
+            raise SystemExit(f"detect_cli: --update strips checkpoint "
+                             f"directories; {files[0]} is not one")
     device = device_from_arg(args.device)
     if args.view_img:
         logger.info("--view-img: results are written to the run dir instead "
@@ -355,6 +359,11 @@ def run(args) -> dict:
     logger.info(f"{n_frames} pairs, {n_det_total} detections, "
                 f"{fps:.1f} FPS end-to-end ({fps_steady:.1f} steady-state) "
                 f"-> {save_dir}")
+    if args.update:
+        from ..utils.checkpoint import strip_checkpoint
+
+        for w in args.weights:
+            logger.info(f"--update: stripped {w} -> {strip_checkpoint(w)}")
     return {"n_images": n_frames, "n_det": n_det_total, "fps": fps,
             "fps_steady": fps_steady, "save_dir": str(save_dir)}
 

@@ -13,9 +13,10 @@ dicts (utils/checkpoint.py); several make an ensemble. ``--device``
 defaults to CUDA and fails without a GPU; ``--device cpu`` runs on the CPU.
 ``run`` takes the parsed arguments, where ``data`` may also be a dict.
 
-Flags whose modules are not ported yet exit with a message naming the
-ROADMAP item that brings them: ``--compute-loss``, ``--plots``,
-``--data-parallel`` and ``--wandb``.
+``--compute-loss`` adds the val loss (box, obj, cls) with the trainer's
+gains. Flags whose modules are not ported yet exit with a message naming
+the ROADMAP item that brings them: ``--plots``, ``--data-parallel`` and
+``--wandb``.
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ logger = logging.getLogger(__name__)
 
 # flag -> why it stops here (the ROADMAP queue item that ports it)
 DEFERRED = {
-    "compute_loss": "--compute-loss needs the detection loss, which comes "
-                    "with the training path (ROADMAP queue 1, item 5)",
     "plots": "--plots needs utils/plots.py (ROADMAP queue 1, item 7, the "
              "long tail)",
     "data_parallel": "--data-parallel comes with the parallel port "
@@ -92,7 +91,7 @@ def parse_args(argv=None):
     ap.add_argument("--no-rect", action="store_true",
                     help="square letterbox instead of rect batches (pad 0.5)")
     ap.add_argument("--compute-loss", action="store_true",
-                    help="not ported yet")
+                    help="also report the box/obj/cls loss on the split")
     ap.add_argument("--no-fuse", action="store_true",
                     help="keep live BatchNorm instead of conv-folded "
                          "inference")
@@ -120,8 +119,13 @@ def _check_flags(args) -> None:
     for flag, msg in DEFERRED.items():
         if getattr(args, flag):
             raise SystemExit(f"test_cli: {msg}")
+    if args.augment and args.compute_loss:
+        raise SystemExit("--augment cannot compute the val loss (the TTA "
+                         "scales' raw outputs differ in shape); drop "
+                         "--compute-loss")
     if len(args.weights) > 1:
-        for on, flag in ((args.augment, "--augment"), (args.int8, "--int8")):
+        for on, flag in ((args.augment, "--augment"), (args.int8, "--int8"),
+                         (args.compute_loss, "--compute-loss")):
             if on:
                 raise SystemExit(f"{flag} is single-checkpoint; drop it or "
                                  f"pass one --weights")
@@ -184,10 +188,22 @@ def run(args) -> dict:
     data = _load_data(args.data)
     img_size = check_img_size(args.img_size, 32)
     nc = 1 if args.single_cls else int(data["nc"])
-    _, fwd = build_forward(args, data, device)
+    models, fwd = build_forward(args, data, device)
     ds, loader = make_loader(args, data, img_size, nc)
     if args.task == "speed":
         return speed_task(fwd, loader, device)
+    loss_fn = None
+    if args.compute_loss:
+        from ..models.detect import anchor_arrays
+        from ..train.loss import DetectionLoss, LossHyp, scale_gains
+
+        # the trainer's gains, so the val loss is on the training scale
+        spec = models[0].spec
+        loss_fn = DetectionLoss(nc, anchor_arrays(spec.anchors),
+                                spec.strides,
+                                scale_gains(LossHyp(), nc=nc,
+                                            img_size=img_size,
+                                            nl=len(spec.strides)))
 
     coco = _save_coco_json(fwd, loader, ds, args, device) \
         if args.save_coco else None
@@ -215,11 +231,14 @@ def run(args) -> dict:
     res = evaluate(fwd, loader, nc=nc, device=device,
                    conf_thres=args.conf_thres, iou_thres=args.iou_thres,
                    single_cls=args.single_cls, hybrid=args.save_hybrid,
-                   per_image=per_image)
+                   per_image=per_image, loss_fn=loss_fn)
     if coco is not None:
         res["coco"] = coco
     if "lamr" in res:
         logger.info(f"log-average miss rate: {res['lamr']:.4f}")
+    if "val_loss" in res:
+        box, obj, cls = res["val_loss"]
+        logger.info(f"val loss: box {box:.5f} obj {obj:.5f} cls {cls:.5f}")
     logger.info(f"{'class':>12} {'P':>8} {'R':>8} {'mAP50':>8} "
                 f"{'mAP75':>8} {'mAP':>8}")
     logger.info(f"{'all':>12} {res['mp']:8.3f} {res['mr']:8.3f} "

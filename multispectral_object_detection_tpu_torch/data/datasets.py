@@ -1,9 +1,9 @@
-"""Evaluation datasets and batches for paired RGB+IR (or single) detection.
+"""Datasets and batches for paired RGB+IR (or single) detection.
 
-The port's counterpart of the evaluation part of
-multispectral_object_detection_tpu/data/datasets.py; its batches equal the
-JAX loader's byte for byte (``rgb``, ``ir``, ``targets``, ``tmask``,
-``shapes``):
+The port's counterpart of multispectral_object_detection_tpu/data/
+datasets.py; its batches equal the JAX loader's byte for byte (``rgb``,
+``ir``, ``targets``, ``tmask``, ``shapes``) where cv2 is importable (the
+augmentations' warps and HSV tables; data/augment.py):
 
 - image lists from a directory, a glob-free listing file or one file;
   labels from ``images/`` -> ``labels/`` txt files of the RGB side;
@@ -16,10 +16,18 @@ JAX loader's byte for byte (``rgb``, ``ir``, ``targets``, ``tmask``,
 - letterboxed samples, square or in aspect-ratio buckets (``rect``, pad
   0.5 in the evaluation protocol), and static-shape collation: targets
   padded to ``max_labels`` per image with a validity mask;
-- ``BatchLoader``: batches in order, assembled one ahead on a thread.
+- training samples (``augment``): a 4-tile mosaic (polygon labels warped
+  point by point), mixup of two mosaics for single-stream data, the shared
+  affine warp, HSV jitter per modality and shared flips, all drawn from the
+  loader's ``random.Random``; a RAM cache of decoded pairs
+  (``cache_images``);
+- ``BatchLoader``: batches assembled one ahead on a thread; for training
+  shuffled per epoch by ``np.random.default_rng(seed + epoch)``, or drawn
+  by class-frequency image weights, with the augmentations' generator
+  ``random.Random(seed * 1000003 + epoch)``.
 
-Mosaic, affine and HSV augmentation, shuffling and quad collation wait for
-the training slice.
+Quad collation and the device-side augmentation batches are not ported
+(ROADMAP queue 1, item 5's remainder).
 """
 
 from __future__ import annotations
@@ -29,14 +37,16 @@ import json
 import logging
 import os
 import queue
+import random
 import struct
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .augment import letterbox, load_scaled, load_scaled_pair
+from .augment import (augment_hsv, letterbox, load_scaled, load_scaled_pair,
+                      mosaic4_pair, random_affine_pair)
 from .imageio import PNG_SIGNATURE, png_size
 
 logger = logging.getLogger(__name__)
@@ -89,15 +99,17 @@ def segments2boxes(segments) -> np.ndarray:
                      b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], axis=-1)
 
 
-def read_label_file(path: str, nc: Optional[int] = None) -> np.ndarray:
-    """YOLO txt -> (n, 5) float32 [cls, x, y, w, h] normalised.
+def read_label_file(path: str, nc: Optional[int] = None):
+    """YOLO txt -> ((n, 5) float32 [cls, x, y, w, h] normalised, a per-row
+    list of (k, 2) normalised polygons, empty for a box-format file).
 
     Rows of more than 8 columns switch the file to polygon format: each
     row's points become their bounding box. Raises on negative values,
     coordinates above 1, duplicate rows or a class >= ``nc``."""
     lab = np.zeros((0, 5), dtype=np.float32)
+    segments: List[np.ndarray] = []
     if not os.path.isfile(path):
-        return lab
+        return lab, segments
     rows = [ln.split() for ln in Path(path).read_text().strip().splitlines()
             if ln.strip()]
     if any(len(r) > 8 for r in rows):
@@ -119,7 +131,7 @@ def read_label_file(path: str, nc: Optional[int] = None) -> np.ndarray:
             raise ValueError(f"duplicate labels in {path}")
         if nc is not None and not (lab[:, 0] < nc).all():
             raise ValueError(f"label class exceeds nc={nc} in {path}")
-    return lab
+    return lab, segments
 
 
 def image_size(path: str):
@@ -151,18 +163,20 @@ def scan_dataset(img_files: Sequence[str],
                  nc: Optional[int] = None, *,
                  with_labels: bool = True) -> dict:
     """Check every image and parse its labels, warning about and skipping
-    corrupt entries. Returns ``keep`` (n,) bool, ``labels`` (a list over
-    all entries, empty where dropped), ``shapes`` (n, 2) float64 original
-    (h, w) and ``counters``."""
+    corrupt entries. Returns ``keep`` (n,) bool, ``labels`` and
+    ``segments`` (lists over all entries, empty where dropped), ``shapes``
+    (n, 2) float64 original (h, w) and ``counters``."""
     if with_labels and label_files is None:
         label_files = [image_to_label_path(p) for p in img_files]
     n = len(img_files)
     keep = np.zeros(n, dtype=bool)
     labels: List[np.ndarray] = []
+    segments: List[list] = []
     shapes = np.zeros((n, 2), dtype=np.float64)
     nf = nm = ne = ncorr = 0
     for i, im_file in enumerate(img_files):
         lab = np.zeros((0, 5), dtype=np.float32)
+        segs: list = []
         try:
             w, h, fmt = image_size(im_file)
             if not (w > 9 and h > 9):
@@ -172,7 +186,7 @@ def scan_dataset(img_files: Sequence[str],
             if with_labels:
                 if os.path.isfile(label_files[i]):
                     nf += 1
-                    lab = read_label_file(label_files[i], nc)
+                    lab, segs = read_label_file(label_files[i], nc)
                     ne += not len(lab)
                 else:
                     nm += 1
@@ -181,13 +195,14 @@ def scan_dataset(img_files: Sequence[str],
         except (OSError, ValueError, SyntaxError, struct.error) as e:
             # SyntaxError: what PIL raises for some damaged files
             ncorr += 1
-            lab = np.zeros((0, 5), dtype=np.float32)
+            lab, segs = np.zeros((0, 5), dtype=np.float32), []
             logger.warning(f"ignoring corrupt image and/or label {im_file}: "
                            f"{e}")
         labels.append(lab)
+        segments.append(segs)
     counters = {"found": nf, "missing": nm, "empty": ne, "corrupt": ncorr}
-    return {"keep": keep, "labels": labels, "shapes": shapes,
-            "counters": counters}
+    return {"keep": keep, "labels": labels, "segments": segments,
+            "shapes": shapes, "counters": counters}
 
 
 def _files_hash(paths: Sequence[str], extra: str = "") -> str:
@@ -225,8 +240,9 @@ def scan_pair_cached(rgb_files: Sequence[str],
         cache_path = Path(cache_dir) / f"scan_{key[:16]}.npz"
         if cache_path.is_file():
             z = np.load(cache_path, allow_pickle=True)
-            if str(z.get("hash")) == key:
+            if str(z.get("hash")) == key and "segments" in z.files:
                 res = {"keep": z["keep"], "labels": list(z["labels"]),
+                       "segments": [list(sg) for sg in z["segments"]],
                        "shapes": z["shapes"],
                        "counters": json.loads(str(z["counters"]))}
                 _log_scan(res["counters"], len(rgb_files), cached=True)
@@ -240,26 +256,33 @@ def scan_pair_cached(rgb_files: Sequence[str],
     if cache_path is not None:
         cache_path.parent.mkdir(parents=True, exist_ok=True)
         lab_arr = np.empty(len(res["labels"]), dtype=object)
+        seg_arr = np.empty(len(res["labels"]), dtype=object)
         for i, lab in enumerate(res["labels"]):
             lab_arr[i] = lab
+            seg_arr[i] = res["segments"][i]
         np.savez(cache_path, hash=key, keep=res["keep"], labels=lab_arr,
-                 shapes=res["shapes"],
+                 segments=seg_arr, shapes=res["shapes"],
                  counters=json.dumps(res["counters"]))
     return res
 
 
 class PairedDetectionDataset:
-    """Paired RGB+IR (or RGB only, ``ir_files`` None) evaluation images.
+    """Paired RGB+IR (or RGB only, ``ir_files`` None) images.
 
-    ``get(i)`` returns (rgb (h, w, 3) uint8, ir or None, labels (n, 5)
-    [cls, x, y, w, h] normalised to the letterboxed canvas, shape_info
-    ((h0, w0), ((rw, rh), (dw, dh))) for the rescale to native pixels)."""
+    ``get(i, rng)`` returns (rgb (h, w, 3) uint8, ir or None, labels (n, 5)
+    [cls, x, y, w, h] normalised to the output canvas, shape_info
+    ((h0, w0), ((rw, rh), (dw, dh))) for the rescale to native pixels).
+    Evaluation samples (``augment`` false) are letterboxed and never scaled
+    up; training samples are augmented with ``hyp`` from ``rng``. Rect
+    training (``rect`` with ``augment``) keeps the affine warp and HSV but
+    no mosaic."""
 
     def __init__(self, rgb_files: Sequence[str],
                  ir_files: Optional[Sequence[str]] = None, *,
                  img_size: int = 640, nc: Optional[int] = None,
                  cache_dir: Optional[str] = None, pad: float = 0.0,
-                 rect: bool = False):
+                 rect: bool = False, augment: bool = False,
+                 hyp: Optional[dict] = None, cache_images: bool = False):
         self.rgb_files = list(rgb_files)
         self.ir_files = list(ir_files) if ir_files is not None else None
         if self.ir_files is not None and \
@@ -274,7 +297,13 @@ class PairedDetectionDataset:
         if self.ir_files is not None:
             self.ir_files = [self.ir_files[i] for i in kept]
         self.labels = [scan["labels"][i] for i in kept]
+        self.segments = [scan["segments"][i] for i in kept]
         self.shapes = scan["shapes"][kept]
+        self.augment = augment
+        self.hyp = dict(hyp or {})
+        # decoded, scaled pairs by index, filled lazily
+        self.cache_images = cache_images
+        self._img_cache: Dict[int, tuple] = {}
         self.scan_counters = scan["counters"]
         self.pad = pad
         self.rect = bool(rect)
@@ -321,13 +350,26 @@ class PairedDetectionDataset:
         return cls(rgb, ir, **kw)
 
     def _load_pair(self, i: int):
+        if i in self._img_cache:
+            return self._img_cache[i]
         if self.ir_files is None:
             rgb, hw0 = load_scaled(self.rgb_files[i], self.img_size)
-            return rgb, rgb, hw0
-        return load_scaled_pair(self.rgb_files[i], self.ir_files[i],
-                                self.img_size)
+            out = rgb, rgb, hw0
+        else:
+            out = load_scaled_pair(self.rgb_files[i], self.ir_files[i],
+                                   self.img_size)
+        if self.cache_images:
+            self._img_cache[i] = out
+        return out
 
-    def get(self, i: int):
+    def _tile(self, i: int):
+        """A mosaic tile: (rgb, ir, labels, polygons)."""
+        rgb, ir, _ = self._load_pair(i)
+        return rgb, ir, self.labels[i], self.segments[i]
+
+    def get(self, i: int, rng: Optional[random.Random] = None):
+        if self.augment:
+            return self._get_augmented(i, rng or random.Random())
         rgb0, ir0, hw0 = self._load_pair(i)
         lab = self.labels[i]
         h, w = rgb0.shape[:2]
@@ -353,6 +395,73 @@ class PairedDetectionDataset:
             labels[:, 4] = (lab_xyxy[:, 4] - lab_xyxy[:, 2]) / hh
         return (rgb, ir if self.ir_files is not None else None, labels,
                 (hw0, (ratio, padwh)))
+
+
+    def _get_augmented(self, i: int, rng: random.Random):
+        hyp, s = self.hyp, self.img_size
+        if not self.rect and rng.random() < hyp.get("mosaic", 1.0):
+            idxs = [i] + [rng.randint(0, len(self) - 1) for _ in range(3)]
+            rgb, ir, lab_xyxy = mosaic4_pair(self._tile, idxs, s, hyp, rng)
+            # mixup of two mosaics, single-stream only (the reference
+            # disables it for two modalities)
+            if self.ir_files is None and rng.random() < hyp.get("mixup", 0.0):
+                idxs2 = [rng.randint(0, len(self) - 1) for _ in range(4)]
+                rgb2, _, lab2 = mosaic4_pair(self._tile, idxs2, s, hyp, rng)
+                r = rng.betavariate(32.0, 32.0)
+                rgb = (rgb.astype(np.float32) * r
+                       + rgb2.astype(np.float32) * (1 - r)).astype(np.uint8)
+                ir = rgb
+                lab_xyxy = np.concatenate([lab_xyxy, lab2], 0)
+            shape_info = ((s, s), ((1.0, 1.0), (0.0, 0.0)))
+        else:
+            # polygons are mosaic-only, as in the reference
+            rgb0, ir0, hw0 = self._load_pair(i)
+            lab = self.labels[i]
+            h, w = rgb0.shape[:2]
+            canvas = self.rect_shape[int(i)] if self.rect else (s, s)
+            rgb, ratio, padwh = letterbox(rgb0, canvas, scaleup=True)
+            ir, _, _ = letterbox(ir0, canvas, scaleup=True)
+            lab_xyxy = lab.copy()
+            if lab.size:
+                lab_xyxy[:, 1] = ratio[0] * w * (lab[:, 1] - lab[:, 3] / 2) \
+                    + padwh[0]
+                lab_xyxy[:, 2] = ratio[1] * h * (lab[:, 2] - lab[:, 4] / 2) \
+                    + padwh[1]
+                lab_xyxy[:, 3] = ratio[0] * w * (lab[:, 1] + lab[:, 3] / 2) \
+                    + padwh[0]
+                lab_xyxy[:, 4] = ratio[1] * h * (lab[:, 2] + lab[:, 4] / 2) \
+                    + padwh[1]
+            rgb, ir, lab_xyxy = random_affine_pair(
+                rgb, ir, lab_xyxy, degrees=hyp.get("degrees", 0.0),
+                translate=hyp.get("translate", 0.1),
+                scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
+                perspective=hyp.get("perspective", 0.0), rng=rng)
+            shape_info = (hw0, (ratio, padwh))
+        gains = (hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                 hyp.get("hsv_v", 0.4))
+        rgb = augment_hsv(rgb, *gains, rng=rng)  # drawn per modality
+        if self.ir_files is not None:
+            ir = augment_hsv(ir, *gains, rng=rng)
+        hh, ww = rgb.shape[:2]
+        labels = np.zeros((len(lab_xyxy), 5), dtype=np.float32)
+        if len(lab_xyxy):
+            labels[:, 0] = lab_xyxy[:, 0]
+            labels[:, 1] = ((lab_xyxy[:, 1] + lab_xyxy[:, 3]) / 2) / ww
+            labels[:, 2] = ((lab_xyxy[:, 2] + lab_xyxy[:, 4]) / 2) / hh
+            labels[:, 3] = (lab_xyxy[:, 3] - lab_xyxy[:, 1]) / ww
+            labels[:, 4] = (lab_xyxy[:, 4] - lab_xyxy[:, 2]) / hh
+        # flips shared by both modalities
+        if rng.random() < hyp.get("flipud", 0.0):
+            rgb, ir = np.flipud(rgb), np.flipud(ir)
+            if len(labels):
+                labels[:, 2] = 1.0 - labels[:, 2]
+        if rng.random() < hyp.get("fliplr", 0.5):
+            rgb, ir = np.fliplr(rgb), np.fliplr(ir)
+            if len(labels):
+                labels[:, 1] = 1.0 - labels[:, 1]
+        return (np.ascontiguousarray(rgb),
+                np.ascontiguousarray(ir) if self.ir_files is not None
+                else None, labels, shape_info)
 
 
 def collate_batch(samples, indices, max_labels: int = 120) -> dict:
@@ -386,32 +495,68 @@ def collate_batch(samples, indices, max_labels: int = 120) -> dict:
 
 
 class BatchLoader:
-    """All batches of a dataset in order (rect datasets: in aspect-ratio
-    order; the last batch may be short), each assembled while the previous
-    one is consumed."""
+    """The batches of one epoch, each assembled while the previous one is
+    consumed.
+
+    By default all of them in order (rect datasets: in aspect-ratio order;
+    the last batch may be short). ``shuffle`` permutes the images with
+    ``np.random.default_rng(seed + epoch)``; ``image_weights`` draws them
+    with replacement by class-frequency weights instead; ``drop_last``
+    drops a short last batch. Augmented samples draw from
+    ``random.Random(seed * 1000003 + epoch)``. ``epoch`` counts the
+    completed passes (a resumed run sets it)."""
 
     def __init__(self, dataset: PairedDetectionDataset, batch_size: int, *,
-                 max_labels: int = 120):
+                 max_labels: int = 120, shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False, image_weights: bool = False,
+                 class_weights=None):
         self.ds = dataset
         self.bs = batch_size
         self.max_labels = max_labels
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.image_weights = image_weights
+        self.class_weights = class_weights
+        self.epoch = 0
         if dataset.rect:
             dataset._setup_rect(batch_size)  # buckets follow the batches
 
     def __len__(self):
-        return -(-len(self.ds) // self.bs)
+        n = len(self.ds)
+        return n // self.bs if self.drop_last else -(-n // self.bs)
+
+    def _indices(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + self.epoch)
+        if self.ds.rect:
+            return np.asarray(self.ds.rect_order)
+        if self.image_weights:
+            from ..utils.general import (labels_to_class_weights,
+                                         labels_to_image_weights)
+
+            nc = int(max((lab[:, 0].max() for lab in self.ds.labels
+                          if len(lab)), default=0)) + 1
+            cw = (self.class_weights if self.class_weights is not None
+                  else labels_to_class_weights(self.ds.labels, nc))
+            iw = labels_to_image_weights(self.ds.labels, nc, cw)
+            p = iw / iw.sum() if iw.sum() > 0 else None
+            return rng.choice(len(self.ds), size=len(self.ds), p=p)
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            rng.shuffle(idx)
+        return idx
 
     def _batches(self):
-        idx = (np.asarray(self.ds.rect_order) if self.ds.rect
-               else np.arange(len(self.ds)))
+        idx = self._indices()
         return [idx[k * self.bs:(k + 1) * self.bs] for k in range(len(self))]
 
-    def _assemble(self, batch_idx) -> dict:
-        return collate_batch([self.ds.get(int(i)) for i in batch_idx],
+    def _assemble(self, batch_idx, rng: random.Random) -> dict:
+        return collate_batch([self.ds.get(int(i), rng) for i in batch_idx],
                              batch_idx, self.max_labels)
 
     def __iter__(self):
         batches = self._batches()
+        rng = random.Random(self.seed * 1000003 + self.epoch)
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
 
@@ -420,7 +565,7 @@ class BatchLoader:
                 for b in batches:
                     if stop.is_set():
                         return
-                    q.put(("batch", self._assemble(b)))
+                    q.put(("batch", self._assemble(b, rng)))
                 q.put(("end", None))
             except BaseException as e:  # handed to the consumer, re-raised
                 q.put(("error", e))
@@ -431,6 +576,7 @@ class BatchLoader:
             while True:
                 kind, item = q.get()
                 if kind == "end":
+                    self.epoch += 1
                     return
                 if kind == "error":
                     raise item

@@ -1,7 +1,7 @@
 """Cross-Modality Fusion Transformer (CFT): the fusion stage of the paper.
 
 Counterpart of ``CrossModalFusion`` in multispectral_object_detection_tpu/
-models/fusion.py, inference path only. Both modality maps are average-pooled
+models/fusion.py. Both modality maps are average-pooled
 to an 8x8 grid, flattened and concatenated into 128 tokens of width C, given
 a learned position embedding, run through L pre-LN transformer layers
 (ops/cft_stack.fused_cft_stack, the CUDA kernels on the GPU), layer-normed,
@@ -12,7 +12,15 @@ Parameters carry the reference GPT names (``pos_emb``,
 out_proj``, ``mlp.0``, ``mlp.2``, ``ln_f``), so reference state dicts load as
 they are. ``pack`` stacks the layer weights once into the kernels' (L, ...)
 layout (weights as (in, out)) and drops the per-layer modules; an unpacked
-module stacks them at every call. Dropout waits for training.
+module stacks them at every call.
+
+In training mode (``module.train()``) the stack runs ``cft_stack_train``
+on weights stacked from ``trans_blocks`` with autograd through the stack,
+with dropout (p = 0.1) on the tokens + position embedding, on the attention
+probabilities and on both residual branches, as the JAX module trains. The
+masks come from the ``seed`` that the forward is given: one generator per
+(layer, slot), so a recomputed forward (``torch.utils.checkpoint``) draws
+the same masks. A packed module does not train.
 """
 
 from __future__ import annotations
@@ -22,9 +30,31 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import adaptive_avg_pool_2d, bilinear_resize_2d
-from ..ops.cft_stack import fused_cft_stack
+from ..ops.cft_stack import cft_stack_train, fused_cft_stack
 
 _STACKED = ("wqkv", "bqkv", "wp", "bp", "w1", "b1", "w2", "b2", "ln1", "ln2")
+_MASK64 = (1 << 64) - 1
+DROPOUT = 0.1  # embedding, attention and residual dropout in training
+
+
+def mix_seed(*values: int) -> int:
+    """A 63-bit seed from integers (splitmix64 finalisers): the key of one
+    dropout mask, from the step's seed and the mask's place."""
+    h = 0x9E3779B97F4A7C15
+    for v in values:
+        h = ((h ^ (v & _MASK64)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 31)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 29
+    return h >> 1
+
+
+def dropout_mask(y: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """y with dropout at rate p: kept values scaled by 1/(1-p), the mask
+    drawn from a generator seeded with ``seed`` on y's device."""
+    g = torch.Generator(device=y.device)
+    g.manual_seed(seed)
+    keep = torch.rand(y.shape, generator=g, device=y.device) < 1.0 - p
+    return torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
 
 
 class SelfAttention(nn.Module):
@@ -83,6 +113,7 @@ class CrossModalFusion(nn.Module):
                  horz_anchors: int = 8):
         super().__init__()
         self.d_model = d_model
+        self.embd_drop = self.attn_drop = self.resid_drop = DROPOUT
         self.num_heads = num_heads
         self.grid = (vert_anchors, horz_anchors)
         self.pos_emb = nn.Parameter(
@@ -119,7 +150,9 @@ class CrossModalFusion(nn.Module):
         return [w[k].to(torch.float32 if k.startswith("ln") else dtype)
                 .contiguous() for k in _STACKED]
 
-    def forward(self, xs):
+    def forward(self, xs, seed: int = 0):
+        """``seed`` keys the dropout masks in training mode (the model
+        passes one per stage and step); unused in eval mode."""
         rgb, ir = xs[0], xs[1]
         b, c, h, w = rgb.shape
         dt = rgb.dtype
@@ -128,8 +161,11 @@ class CrossModalFusion(nn.Module):
                             adaptive_avg_pool_2d(ir, (gv, gh)).flatten(2)],
                            dim=2).transpose(1, 2)               # (B, 128, C)
         x = (tokens + self.pos_emb.to(dt)).contiguous()
-        x = self.stack_fn(x, *self.stacked_weights(dt),
-                          num_heads=self.num_heads)
+        if self.training:
+            x = self._train_stack(x, seed)
+        else:
+            x = self.stack_fn(x, *self.stacked_weights(dt),
+                              num_heads=self.num_heads)
         x = F.layer_norm(x.float(), (c,), self.ln_f.weight.float(),
                          self.ln_f.bias.float(), self.ln_f.eps).to(dt)
         n = gv * gh
@@ -137,3 +173,20 @@ class CrossModalFusion(nn.Module):
         ir_t = x[:, n:].transpose(1, 2).reshape(b, c, gv, gh)
         return tuple(bilinear_resize_2d(t, (h, w)).contiguous(
             memory_format=torch.channels_last) for t in (rgb_t, ir_t))
+
+    def _train_stack(self, x, seed: int):
+        if self.packed:
+            raise RuntimeError("a packed (fused) CFT stage cannot train: "
+                               "build the model unfused")
+        rates = (self.attn_drop, self.resid_drop, self.resid_drop)
+
+        def drop(t, layer: int, slot: int):
+            p = rates[slot]
+            return t if p <= 0 else dropout_mask(
+                t, p, mix_seed(seed, 1 + layer * 3 + slot))
+
+        if self.embd_drop > 0:
+            x = dropout_mask(x, self.embd_drop, mix_seed(seed, 0))
+        w = _stack_layers(self.trans_blocks)
+        return cft_stack_train(x, *(w[k] for k in _STACKED),
+                               num_heads=self.num_heads, dropout=drop)

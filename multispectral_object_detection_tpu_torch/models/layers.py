@@ -10,12 +10,21 @@ Numerics as in the JAX modules: convolutions run in the input's dtype
 fp32 with eps 1e-3, SiLU in the compute dtype. After ``fuse_conv_bn``
 (models/model.py) a ConvBnAct holds a conv with bias and no ``bn``; after
 ``quantize_int8`` (models/quantize.py) its weight is int8 with a scale, read
-through ``conv_weight``. Inference only: BatchNorm always uses its running
-statistics.
+through ``conv_weight``.
+
+BatchNorm follows the module's mode. In eval mode it reads its running
+statistics. In training mode it normalises with the batch's biased variance
+and updates ``ra = 0.97 ra + 0.03 batch`` with the biased variance, as flax
+``nn.BatchNorm`` does (``F.batch_norm`` would update with the unbiased one).
+Inside ``frozen_batch_stats()`` the update is skipped: the forward that
+``torch.utils.checkpoint`` recomputes in the backward pass runs there, so a
+step updates the statistics once.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
@@ -25,6 +34,40 @@ import torch.nn.functional as F
 from ..ops.c3_bottleneck import c3_bottleneck
 from .parser import autopad
 from .quantize import conv_weight
+
+
+_bn_state = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """BatchNorm in training mode leaves its running statistics unchanged
+    within this context (in this thread)."""
+    prev = getattr(_bn_state, "frozen", False)
+    _bn_state.frozen = True
+    try:
+        yield
+    finally:
+        _bn_state.frozen = prev
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Normalise y (any float dtype, statistics in fp32) with its batch
+    statistics and, unless frozen, update bn's running statistics with the
+    biased variance."""
+    # F.batch_norm updates copies: autograd keeps the statistics it was
+    # given, so the tensors it saw must not change after the call (and a
+    # recomputed forward must save the same tensors as the first)
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    out = F.batch_norm(y, mean, var, bn.weight, bn.bias, True, bn.momentum,
+                       bn.eps)
+    if not getattr(_bn_state, "frozen", False):
+        n = y.numel() // y.shape[1]
+        with torch.no_grad():  # the update's variance term times (n-1)/n
+            kept = (1.0 - bn.momentum) * bn.running_var
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+    return out
 
 
 class ConvBnAct(nn.Module):
@@ -43,7 +86,9 @@ class ConvBnAct(nn.Module):
         y = F.conv2d(x, conv_weight(c, x.dtype),
                      None if c.bias is None else c.bias.to(x.dtype),
                      c.stride, c.padding, c.dilation, c.groups)
-        if self.bn is not None:
+        if self.bn is not None and self.training:
+            y = batch_norm_train(y, self.bn)
+        elif self.bn is not None:
             bn = self.bn
             y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0,

@@ -1,11 +1,16 @@
 """Graph executor: ModelSpec -> nn.Module running the compiled layer list.
 
-Counterpart of multispectral_object_detection_tpu/models/model.py (inference
-only). Layers run in row order, outputs needed later are kept in a save
-dict, multi-input rows gather from it, and rows whose ``from`` is -4 consume
-the second (IR) input. The modules sit in ``self.model`` (an
-``nn.ModuleList``), so state dict keys read ``model.{i}.…`` as in the
-reference torch model.
+Counterpart of multispectral_object_detection_tpu/models/model.py. Layers
+run in row order, outputs needed later are kept in a save dict, multi-input
+rows gather from it, and rows whose ``from`` is -4 consume the second (IR)
+input. The modules sit in ``self.model`` (an ``nn.ModuleList``), so state
+dict keys read ``model.{i}.…`` as in the reference torch model.
+
+``model.train()`` puts BatchNorm on batch statistics and the CFT stages on
+their training stack with dropout (models/layers.py, models/fusion.py).
+With ``remat_blocks`` each graph node runs under ``checkpoint_once`` in
+training: the backward pass keeps the nodes' outputs and recomputes what
+lies inside them, as the JAX package's ``nn.remat`` per block does.
 """
 
 from __future__ import annotations
@@ -16,11 +21,31 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .detect import Detect, anchor_arrays, decode_predictions
-from .fusion import CrossModalFusion
+from .fusion import CrossModalFusion, mix_seed
 from .parser import ModelSpec, Node, parse_model_config
+
+
+def checkpoint_once(fn, *args, context_fn=None):
+    """fn(*args) under ``torch.utils.checkpoint`` (non-reentrant). The
+    backward pass recomputes fn with BatchNorm's running-statistics update
+    off (``layers.frozen_batch_stats``), so a step updates them once.
+    ``context_fn``: a selective-checkpoint policy context (see
+    train/trainer.py)."""
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        with L.frozen_batch_stats():
+            return fn(*a)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _build_module(node: Node, use_c3_kernel: bool = False) -> nn.Module:
@@ -70,6 +95,7 @@ class DetectionModel(nn.Module):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
+        self.remat_blocks = False  # set by train.trainer.make_train_step
         mods = []
         for node in spec.nodes:
             if node.kind == "Detect":
@@ -82,12 +108,19 @@ class DetectionModel(nn.Module):
                 mods.append(_build_module(node, use_c3_kernel))
         self.model = nn.ModuleList(mods)
 
-    def forward(self, x, x2=None):
+    def forward(self, x, x2=None, dropout_seed: Optional[int] = None):
+        """``dropout_seed`` keys the CFT dropout masks in training mode
+        (each stage mixes in its node index); None draws one from torch's
+        global generator on the host."""
         if self.spec.two_stream and x2 is None:
             raise ValueError("two-stream model needs both RGB and IR inputs")
         saved = {}
         cur = x.to(self.dtype)
         x2 = None if x2 is None else x2.to(self.dtype)
+        remat = self.remat_blocks and self.training and \
+            torch.is_grad_enabled()
+        if self.training and dropout_seed is None:
+            dropout_seed = int(torch.randint(2 ** 62, ()))
         for node, mod in zip(self.spec.nodes, self.model):
             if node.frm == (-4,) and not node.multi:
                 inp = x2
@@ -97,7 +130,11 @@ class DetectionModel(nn.Module):
                 inp = [cur if j == -1 else saved[j] for j in node.frm]
             else:
                 inp = saved[node.frm[0]]
-            cur = mod(inp)
+            fn = mod
+            if isinstance(mod, CrossModalFusion) and self.training:
+                def fn(y, _m=mod, _s=mix_seed(dropout_seed, node.index)):
+                    return _m(y, _s)
+            cur = checkpoint_once(fn, inp) if remat else fn(inp)
             if node.index in self.spec.save:
                 saved[node.index] = cur
         return cur
@@ -120,8 +157,9 @@ class DetectionModel(nn.Module):
 def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
                 dtype: torch.dtype = torch.float32, device=None,
                 use_c3_kernel: bool = False) -> DetectionModel:
-    """YAML path / dict / ModelSpec -> DetectionModel. ``device="meta"``
-    builds the structure without storage (parameter counts)."""
+    """YAML path / dict / ModelSpec -> DetectionModel, in eval mode.
+    ``device="meta"`` builds the structure without storage (parameter
+    counts)."""
     spec = cfg if isinstance(cfg, ModelSpec) else parse_model_config(
         cfg, ch_in=ch_in, nc=nc, anchors=anchors)
     with torch.device(device or "cpu"):

@@ -19,6 +19,13 @@ Numerics follow ``_kernel`` of pallas_fusion.py: LayerNorm statistics in
 fp32 (eps 1e-5), matmuls accumulated in fp32 with biases widened from the
 compute dtype, fp32 logits and softmax, attention probabilities rounded to
 the compute dtype, exact GELU, fp32 residual stream.
+
+The kernels have no backward. Their wrappers refuse, on the card, inputs
+that need a gradient while grad mode is on, instead of returning a result
+cut from the autograd graph. Training runs ``cft_stack_train``: plain,
+out-of-place PyTorch that computes what the JAX package trains through (the
+``lax.scan`` of models/fusion.py ``_scan_stack``), with dropout, and a
+residual stream in the compute dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +45,16 @@ EPILOGUES = ("bias", "gelu", "residual")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """The kernels write their outputs through raw pointers: a result would
+    carry no ``grad_fn``, and gradients would stop here without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or inference_mode, or train through "
+            "cft_stack_train")
 
 
 def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
@@ -75,6 +92,7 @@ def layer_norm(x, scale, bias, dtype, eps: float = 1e-5):
     """Kernel ``cft_layernorm`` (kernels/csrc/layernorm.cu)."""
     if on_cpu(x, scale, bias):
         return layer_norm_plain(x, scale, bias, dtype, eps)
+    _refuse_grad("layer_norm", x, scale, bias)
     check_layer_norm(x, scale, bias, dtype)
     M, C = x.shape
     out = torch.empty((M, C), dtype=dtype, device=x.device)
@@ -134,6 +152,7 @@ def linear(a, w, bias, epilogue: str, out=None):
     tensors = (a, w, bias) + ((out,) if out is not None else ())
     if on_cpu(*tensors):
         return linear_plain(a, w, bias, epilogue, out)
+    _refuse_grad("linear", *tensors)
     check_linear(a, w, bias, epilogue, out)
     M, K = a.shape
     N = w.shape[1]
@@ -185,6 +204,7 @@ def attention(qkv, batch: int, num_heads: int):
     """Kernel ``cft_attention`` (kernels/csrc/attention.cu)."""
     if on_cpu(qkv):
         return attention_plain(qkv, batch, num_heads)
+    _refuse_grad("attention", qkv)
     check_attention(qkv, batch, num_heads)
     M, C3 = qkv.shape
     C = C3 // 3
@@ -242,3 +262,44 @@ def fused_cft_stack_plain(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
     counterpart of pallas_fusion.fused_cft_stack_reference)."""
     return _run_stack((layer_norm_plain, linear_plain, attention_plain), x,
                       wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, num_heads)
+
+
+def cft_stack_train(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
+                    num_heads: int = 8, dropout=None):
+    """The stack for training: differentiable and out of place, step for
+    step the JAX package's ``_scan_stack``. Arguments as ``fused_cft_stack``
+    (weights in any float dtype, cast to x's at use). Per layer:
+
+        h = LN1(x) (fp32 statistics, eps 1e-5) in x's dtype
+        qkv = h @ wqkv + bqkv                  (x's dtype)
+        a = drop(softmax(q k^T / sqrt(D)), 0)  (fp32, then x's dtype) @ v
+        x = x + drop(a @ wp + bp, 1)           (x's dtype)
+        x = x + drop(GELU(LN2(x) @ w1 + b1) @ w2 + b2, 2)
+
+    so the residual stream stays in x's dtype (K1 keeps it in fp32).
+    ``dropout(t, layer, slot)`` returns t with dropout applied; None for
+    none."""
+    B, N, C = x.shape
+    dt = x.dtype
+    d = C // num_heads
+    for i in range(wqkv.shape[0]):
+        h = layer_norm_plain(x.float(), ln1[i, 0], ln1[i, 1], dt)
+        qkv = (h @ wqkv[i].to(dt) + bqkv[i].to(dt)).view(B, N, 3, num_heads,
+                                                          d)
+        q, k, v = qkv.unbind(2)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+        att = torch.softmax(logits / math.sqrt(d), dim=-1)
+        if dropout is not None:
+            att = dropout(att, i, 0)
+        a = torch.einsum("bhnm,bmhd->bnhd", att.to(dt), v).reshape(B, N, C)
+        a = a @ wp[i].to(dt) + bp[i].to(dt)
+        if dropout is not None:
+            a = dropout(a, i, 1)
+        x = x + a
+        h = layer_norm_plain(x.float(), ln2[i, 0], ln2[i, 1], dt)
+        t = F.gelu(h @ w1[i].to(dt) + b1[i].to(dt))
+        t = t @ w2[i].to(dt) + b2[i].to(dt)
+        if dropout is not None:
+            t = dropout(t, i, 2)
+        x = x + t
+    return x

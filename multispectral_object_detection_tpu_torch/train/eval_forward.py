@@ -22,7 +22,7 @@ ENSEMBLE_MODES = ("cat", "mean", "max", "ds", "ds-li", "ds-sun")
 _DS_METHOD = {"ds": "plain", "ds-li": "li", "ds-sun": "sun"}
 
 
-def _inputs(model, rgb: torch.Tensor, ir: torch.Tensor):
+def model_inputs(model, rgb: torch.Tensor, ir: torch.Tensor):
     """uint8 NHWC -> float NCHW in [0, 1] (channels_last memory, a free
     permute); the IR input only for two-stream models."""
     x = rgb.permute(0, 3, 1, 2).float() / 255.0
@@ -36,7 +36,7 @@ def make_eval_forward(model) -> Callable:
 
     @torch.inference_mode()
     def fwd(rgb, ir):
-        feats = model(*_inputs(model, rgb, ir))
+        feats = model(*model_inputs(model, rgb, ir))
         return model.decode(feats), feats
 
     return fwd
@@ -71,7 +71,7 @@ def make_eval_forward_ensemble(models: Sequence, mode: str = "cat") -> Callable:
 
     @torch.inference_mode()
     def fwd(rgb, ir):
-        return combine_members([m.decode(m(*_inputs(m, rgb, ir)))
+        return combine_members([m.decode(m(*model_inputs(m, rgb, ir)))
                                 for m in models], mode), None
 
     return fwd
@@ -84,6 +84,6 @@ def make_eval_forward_tta(model) -> Callable:
 
     @torch.inference_mode()
     def fwd(rgb, ir):
-        return tta_forward(model, *_inputs(model, rgb, ir)), None
+        return tta_forward(model, *model_inputs(model, rgb, ir)), None
 
     return fwd

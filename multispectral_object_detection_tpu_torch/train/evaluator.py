@@ -5,7 +5,8 @@ same protocol line for line: conf 0.001, NMS IoU 0.6, multi-label NMS with
 up to 30000 candidates (on the device), predictions rescaled to native
 image pixels, greedy TP matching at 10 IoU thresholds and the
 ``summarize_stats`` summary (host numpy), the log-average miss rate when
-nc = 1. The validation loss waits for the training slice.
+nc = 1, and with a ``loss_fn`` the mean box/obj/cls loss over the batches
+(summed on the device, read once at the end).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
              single_cls: bool = False, max_det: int = 300,
              top_k: int = 30000, hybrid: bool = False,
              per_image: Callable = None,
-             confusion=None) -> Dict[str, object]:
+             confusion=None, loss_fn: Callable = None) -> Dict[str, object]:
     """Run the eval protocol; returns the ``summarize_stats`` dict plus
     ``seen``, ``lamr`` (nc = 1) and the per-image times ``t_infer_ms``
     (upload + forward + decode), ``t_nms_ms`` and ``t_match_ms`` (host
@@ -48,12 +49,15 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         image with the NMS output in native pixels; ``idx`` is the image's
         dataset position, ``batch["index"]`` (batches without it are taken
         to be in dataset order).
-    confusion: a metrics.ConfusionMatrix accumulated over all images."""
+    confusion: a metrics.ConfusionMatrix accumulated over all images.
+    loss_fn: train/loss.DetectionLoss on the forward's raw outputs; adds
+        ``val_loss`` [box, obj, cls], the mean over batches."""
     device = torch.device(device)
     stats = []
     t_infer = t_nms = t_match = 0.0
     seen = 0
     nms_stats = {"candidates": 0, "iterations": 0}
+    loss_sum, n_loss = None, 0
     for batch in loader:
         rgb_np = batch["rgb"]
         B, H, W = rgb_np.shape[:3]
@@ -61,10 +65,18 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         rgb = torch.from_numpy(rgb_np).to(device)
         ir = torch.from_numpy(batch["ir"]).to(device) if "ir" in batch \
             else rgb
-        dets_flat, _ = forward(rgb, ir)
+        dets_flat, feats = forward(rgb, ir)
         _sync(device)
         t1 = time.perf_counter()
         targets, tmask = batch["targets"], batch["tmask"]
+        if loss_fn is not None:
+            with torch.inference_mode():
+                _, comps = loss_fn(feats, torch.from_numpy(targets).to(
+                    device), torch.from_numpy(tmask).to(device))
+                part = torch.stack([comps["box"], comps["obj"],
+                                    comps["cls"]])
+                loss_sum = part if loss_sum is None else loss_sum + part
+            n_loss += 1
         labels = lmask = None
         if hybrid:
             # the collate layout: per-image blocks of max_labels rows
@@ -128,4 +140,6 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
     out["t_match_ms"] = 1000.0 * t_match / per
     out["nms_candidates"] = int(nms_stats["candidates"]) / per
     out["nms_iterations"] = nms_stats["iterations"] / max(len(loader), 1)
+    if n_loss:
+        out["val_loss"] = (loss_sum / n_loss).tolist()
     return out

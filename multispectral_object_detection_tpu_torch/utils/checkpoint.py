@@ -1,6 +1,15 @@
-"""Reading checkpoints for inference, without JAX or flax.
+"""Checkpoints: the port's training state, and reading for inference
+without JAX or flax.
 
-Two forms are taken:
+A run directory keeps the JAX package's layout: ``last/``, ``best/`` and
+``epoch{N}/``, each with ``meta.json`` ({epoch, best_fitness, ...}). The
+state is the port's own: ``state.pt``, a ``torch.save`` of {model, ema,
+opt, step, ema_updates} (``TrainState.state_dict``), written atomically
+(temporary file + rename), optionally on a background thread
+(``CheckpointWriter``). ``strip_checkpoint`` keeps the EMA weights only, as
+``model.pt``: a plain reference-layout state dict.
+
+For inference these forms are read:
 
 - a checkpoint directory of the JAX package: ``model.msgpack`` (stripped,
   ``{params, batch_stats}``) or else ``state.msgpack`` (its EMA weights,
@@ -12,16 +21,22 @@ Two forms are taken:
   become float32 with the same values. The trees go through
   ``utils/jax_import.state_dict_from_jax`` into a reference-layout state
   dict.
-- a ``.pt`` file holding a reference-layout state dict.
+- a ``.pt`` file holding a reference-layout state dict;
+- a port checkpoint directory: ``model.pt`` (stripped) or else the EMA
+  of ``state.pt``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import struct
+import threading
 from pathlib import Path
-from typing import Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from .jax_import import state_dict_from_jax
 
@@ -141,28 +156,174 @@ def msgpack_restore(data: bytes):
 
 
 def load_inference_params(path: Union[str, Path]) -> Dict[str, np.ndarray]:
-    """A JAX checkpoint directory or a ``.pt`` state dict -> a
-    reference-layout state dict {key: array} of the unfused model."""
+    """A checkpoint directory (the port's or the JAX package's) or a ``.pt``
+    state dict -> a reference-layout state dict {key: array} of the
+    unfused model: the stripped weights where there are some, else the
+    training state's EMA."""
     p = Path(path)
     if p.is_dir():
+        if (p / "model.pt").is_file():
+            return load_inference_params(p / "model.pt")
         if (p / "model.msgpack").is_file():
             raw = msgpack_restore((p / "model.msgpack").read_bytes())
             params, stats = raw["params"], raw["batch_stats"]
+        elif (p / "state.pt").is_file():
+            return _tensors_to_numpy(_torch_load(p / "state.pt")["ema"])
         elif (p / "state.msgpack").is_file():
             raw = msgpack_restore((p / "state.msgpack").read_bytes())
             params, stats = raw["ema_params"], raw["ema_stats"]
         else:
-            raise FileNotFoundError(f"{p}: neither model.msgpack nor "
-                                    f"state.msgpack")
+            raise FileNotFoundError(f"{p}: none of model.pt, model.msgpack, "
+                                    f"state.pt, state.msgpack")
         return state_dict_from_jax(params, stats)
-    import torch
-
-    sd = torch.load(p, map_location="cpu", weights_only=True)
+    sd = _torch_load(p)
     if not isinstance(sd, dict) or not all(
             isinstance(k, str) and isinstance(v, torch.Tensor)
             for k, v in sd.items()):
         raise ValueError(f"{p}: expected a state dict of tensors")
-    # half-precision tensors are read as fp32 of the same values, as the
-    # msgpack path reads its bfloat16 leaves (numpy has no bfloat16)
+    return _tensors_to_numpy(sd)
+
+
+def _torch_load(p: Path):
+    return torch.load(p, map_location="cpu", weights_only=True)
+
+
+def _tensors_to_numpy(sd: dict) -> Dict[str, np.ndarray]:
+    """Half-precision tensors are read as fp32 of the same values, as the
+    msgpack path reads its bfloat16 leaves (numpy has no bfloat16)."""
     return {k: (v.float() if v.dtype in (torch.bfloat16, torch.float16)
-                else v).numpy() for k, v in sd.items()}
+                else v).detach().cpu().numpy() for k, v in sd.items()}
+
+
+# ------------------------------------------------------------------ saving
+def _atomic_write(path: Path, write) -> None:
+    """write(tmp_path), then rename over ``path``: a crash mid-write never
+    leaves a torn file behind."""
+    tmp = path.with_name(path.name + ".tmp")
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def _write_checkpoint(p: Path, host_state: dict, info: dict) -> None:
+    p.mkdir(parents=True, exist_ok=True)
+    _atomic_write(p / "state.pt", lambda t: torch.save(host_state, t))
+    _atomic_write(p / "meta.json",
+                  lambda t: t.write_text(json.dumps(info, indent=1)))
+
+
+class CheckpointWriter:
+    """Writes checkpoints on a background thread, one at a time. ``save``
+    joins the previous write first; ``wait`` joins the last and re-raises
+    what it raised (a failed write must not pass for a saved one). Close
+    with ``wait`` before reading a checkpoint back or exiting."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, p: Path, host_state: dict, info: dict) -> None:
+        self.wait()
+
+        def run():
+            try:
+                _write_checkpoint(p, host_state, info)
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("background checkpoint write failed") from err
+
+
+def save_checkpoint(path, state, *, epoch: int, best_fitness: float,
+                    meta: Optional[Dict[str, Any]] = None,
+                    writer: Optional[CheckpointWriter] = None) -> None:
+    """Write ``state`` (a train/trainer.TrainState) to the directory
+    ``path``. The copy to host memory happens now; with ``writer`` the
+    serialisation and the disk write run on its thread."""
+    host_state = _to_cpu(state.state_dict())
+    info = {"epoch": int(epoch), "best_fitness": float(best_fitness)}
+    info.update(meta or {})
+    if writer is None:
+        _write_checkpoint(Path(path), host_state, info)
+    else:
+        writer.save(Path(path), host_state, info)
+
+
+def _read_meta(p: Path) -> dict:
+    f = p / "meta.json"
+    return json.loads(f.read_text()) if f.is_file() else {}
+
+
+def load_checkpoint(path, state=None):
+    """(the raw state dict of ``state.pt``, meta). With ``state`` (a
+    TrainState) restores it in place (model, EMA, optimizer, counters) and
+    returns (state, meta)."""
+    p = Path(path)
+    raw = _torch_load(p / "state.pt")
+    meta = _read_meta(p)
+    if state is None:
+        return raw, meta
+    state.load_state_dict(raw)
+    return state, meta
+
+
+def partial_load(model, sd: Dict[str, Any]) -> tuple:
+    """Copy every entry of ``sd`` (reference-layout arrays or tensors)
+    whose key is in the model's state dict with the same shape; the rest
+    keep their values (warm starts across class counts or anchors).
+    Returns (n_copied, n_total)."""
+    target = model.state_dict()
+    n_copied = 0
+    with torch.no_grad():
+        for k, t in target.items():
+            v = sd.get(k)
+            if v is None or tuple(np.shape(v)) != tuple(t.shape):
+                continue
+            t.copy_(torch.as_tensor(np.asarray(v)).to(t.dtype))
+            n_copied += 1
+    return n_copied, len(target)
+
+
+def strip_checkpoint(path, out_path=None) -> Path:
+    """Finish a checkpoint directory for inference: its EMA weights as
+    ``model.pt`` (a reference-layout state dict of fp32 tensors) in
+    ``out_path`` (default: the same directory), meta marked ``stripped``.
+    Takes the port's ``state.pt`` or the JAX package's
+    ``state.msgpack``."""
+    p = Path(path)
+    out = Path(out_path or path)
+    out.mkdir(parents=True, exist_ok=True)
+    if (p / "state.pt").is_file():
+        ema = {k: v.float() if v.is_floating_point() else v
+               for k, v in _torch_load(p / "state.pt")["ema"].items()}
+    elif (p / "state.msgpack").is_file():
+        raw = msgpack_restore((p / "state.msgpack").read_bytes())
+        ema = {k: torch.from_numpy(np.array(v)) for k, v in
+               state_dict_from_jax(raw["ema_params"],
+                                   raw["ema_stats"]).items()}
+    else:
+        raise FileNotFoundError(f"{p}: no state.pt or state.msgpack to strip")
+    _atomic_write(out / "model.pt", lambda t: torch.save(ema, t))
+    meta = _read_meta(p)
+    meta["stripped"] = True
+    _atomic_write(out / "meta.json",
+                  lambda t: t.write_text(json.dumps(meta, indent=1)))
+    return out / "model.pt"

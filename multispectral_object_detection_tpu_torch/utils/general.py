@@ -1,6 +1,7 @@
-"""Helpers of the port's entry points: device selection, image sizes, run
-directories, COCO class ids, the native-space box rescale, box drawing,
-image writing and detection crops.
+"""Helpers of the port's entry points: device selection, seeds, image
+sizes, run directories and the newest ``last`` checkpoint, class and image
+weights, COCO class ids, the native-space box rescale, box drawing, image
+writing and detection crops.
 
 The port's own copies of the framework-free helpers of
 multispectral_object_detection_tpu/utils/general.py and of
@@ -17,6 +18,8 @@ from __future__ import annotations
 import glob
 import logging
 import math
+import os
+import random
 import re
 from pathlib import Path
 
@@ -43,6 +46,44 @@ def device_from_arg(arg: str) -> torch.device:
     'cuda:N' or a CUDA index N."""
     arg = (arg or "").strip()
     return select_device(f"cuda:{arg}" if arg.isdigit() else (arg or None))
+
+
+def init_seeds(seed: int = 0) -> None:
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def get_latest_run(search_dir: str = ".") -> str:
+    """The newest ``last`` checkpoint directory (or ``last.ckpt*`` file)
+    under ``search_dir``, for a bare ``--resume``; '' when there is none."""
+    paths = glob.glob(f"{search_dir}/**/last.ckpt*", recursive=True) + \
+        glob.glob(f"{search_dir}/**/last", recursive=True)
+    return max(paths, key=os.path.getctime) if paths else ""
+
+
+def labels_to_class_weights(labels, nc: int) -> np.ndarray:
+    """Inverse class frequencies over all label rows, normalised to sum 1
+    (a class without labels counts once)."""
+    if not len(labels):
+        return np.ones(nc)
+    cls = np.concatenate([lab[:, 0] for lab in labels if len(lab)],
+                         0).astype(int) \
+        if any(len(lab) for lab in labels) else np.zeros(0, int)
+    weights = np.bincount(cls, minlength=nc).astype(float)
+    weights[weights == 0] = 1.0
+    weights = 1.0 / weights
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels, nc: int,
+                            class_weights=None) -> np.ndarray:
+    """Per image: the sum over its label rows of their class weights."""
+    cw = class_weights if class_weights is not None else np.ones(nc)
+    counts = np.array([np.bincount(lab[:, 0].astype(int), minlength=nc)
+                       if len(lab) else np.zeros(nc) for lab in labels])
+    return (counts * cw.reshape(1, nc)).sum(1)
 
 
 def check_img_size(img_size: int, stride: int = 32) -> int:
@@ -109,7 +150,9 @@ def _cv2():
         if not _NO_CV2_NOTED:
             _NO_CV2_NOTED = True
             logger.info("cv2 is not installed: boxes are drawn without "
-                        "labels and images are written as PNG")
+                        "labels, images are written as PNG, and training "
+                        "warps and HSV jitter run in the port's C++ "
+                        "runtime")
         return None
 
 

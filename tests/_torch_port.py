@@ -1,5 +1,6 @@
 """Helpers shared by the PyTorch port's parity tests (tests/test_torch_*.py)."""
 
+import contextlib
 import functools
 import os
 
@@ -144,3 +145,182 @@ def write_jax_checkpoint(directory, params, stats) -> str:
     (d / "model.msgpack").write_bytes(serialization.msgpack_serialize(
         {"params": params, "batch_stats": stats}))
     return str(d)
+
+
+@contextlib.contextmanager
+def jax_training_as_port(two_pass_variance: bool = True):
+    """Within: the JAX package trains the function the port's tests train,
+    through test-side substitutions, restored on exit (its files stay
+    untouched):
+
+    - its CFT stages build with dropout 0 (``CrossModalFusion`` in its
+      models/model.py wrapped in a partial), as the port's tests turn
+      dropout off (``port_without_dropout``);
+    - with ``two_pass_variance``, its BatchNorm computes the batch variance
+      in two passes, E[(x-mean)^2] (``use_fast_variance=False``), as the
+      port's (ATen's) does, instead of flax's default E[x^2] - mean^2,
+      which loses about mean^2/var ulps (the float64 run keeps flax's).
+
+    A flax module builds its submodules at every apply (and a jitted
+    function at every trace), so each call runs inside."""
+    from types import SimpleNamespace
+
+    import flax.linen as nn
+
+    from multispectral_object_detection_tpu.models import layers as jl
+    from multispectral_object_detection_tpu.models import model as jm
+
+    class TwoPassBatchNorm(nn.BatchNorm):
+        use_fast_variance: bool = False
+
+    orig_fusion, orig_nn = jm.CrossModalFusion, jl.nn
+    jm.CrossModalFusion = functools.partial(orig_fusion, embd_drop=0.0,
+                                            attn_drop=0.0, resid_drop=0.0)
+    if two_pass_variance:
+        jl.nn = SimpleNamespace(**{**vars(nn), "BatchNorm": TwoPassBatchNorm})
+    try:
+        yield
+    finally:
+        jm.CrossModalFusion, jl.nn = orig_fusion, orig_nn
+
+
+@contextlib.contextmanager
+def float32_read_as_float64():
+    """Within: both packages compute in float64 wherever they name float32
+    (their statistics, logits and loss dtype), through test-side
+    substitutions restored on exit: each module's ``jnp`` (JAX package) or
+    ``torch`` (port) name reads ``float32`` as ``float64``, the port's
+    host-side float32 schedules (``_F32``) run in float64, and
+    ``Tensor.float()`` gives float64; JAX runs with x64 enabled and torch
+    with float64 as its default dtype. Constants
+    the packages round through numpy's float32 (anchors) stay so on both
+    sides. With the rounding noise of float32 gone, two implementations of
+    the same function agree to about 1e-12 even where the function is
+    ill-conditioned, so a residual difference there is a fault."""
+    import importlib
+    import sys
+    from types import SimpleNamespace
+
+    import jax
+    import jax.numpy as jnp
+
+    for pkg in ("multispectral_object_detection_tpu",
+                "multispectral_object_detection_tpu_torch"):
+        for mod in ("models.model", "train.loss", "train.optim",
+                    "train.trainer"):
+            importlib.import_module(f"{pkg}.{mod}")
+    jnp64 = SimpleNamespace(**{**vars(jnp), "float32": jnp.float64})
+    torch64 = SimpleNamespace(**{**vars(torch), "float32": torch.float64})
+    swapped = []
+    for name, mod in list(sys.modules.items()):
+        for pkg, attr, orig, proxy in (
+                ("multispectral_object_detection_tpu.", "jnp", jnp, jnp64),
+                ("multispectral_object_detection_tpu_torch.", "torch", torch,
+                 torch64),
+                ("multispectral_object_detection_tpu_torch.", "_F32",
+                 np.float32, np.float64)):
+            if name.startswith(pkg) and getattr(mod, attr, None) is orig:
+                setattr(mod, attr, proxy)
+                swapped.append((mod, attr, orig))
+    orig_float, orig_default = torch.Tensor.float, torch.get_default_dtype()
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    torch.set_default_dtype(torch.float64)  # as x64 makes JAX's default
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        torch.Tensor.float = orig_float
+        torch.set_default_dtype(orig_default)
+        for mod, attr, orig in swapped:
+            setattr(mod, attr, orig)
+
+
+def port_without_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    """The port's CFT stages with dropout 0, in place."""
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+
+    for m in model.modules():
+        if isinstance(m, CrossModalFusion):
+            m.embd_drop = m.attn_drop = m.resid_drop = 0.0
+    return model
+
+
+def train_batch(n_img: int = 2, img: int = 64, seed: int = 0):
+    """A fixed training batch: uint8 NHWC RGB and IR (n_img, img, img, 3)
+    and padded targets (n_img * 8, 6) with their mask (3 boxes per image,
+    classes 0 and 1)."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (n_img, img, img, 3), dtype=np.uint8)
+    ir = rng.integers(0, 256, (n_img, img, img, 3), dtype=np.uint8)
+    targets = np.zeros((n_img * 8, 6), np.float32)
+    tmask = np.zeros((n_img * 8,), np.float32)
+    for b in range(n_img):
+        for j in range(3):
+            r = b * 8 + j
+            wh = rng.uniform(0.1, 0.5, 2)
+            xy = rng.uniform(wh / 2, 1 - wh / 2)
+            targets[r] = [b, (b + j) % 2, *xy, *wh]
+            tmask[r] = 1.0
+    return rgb, ir, targets, tmask
+
+
+# the learning rates of the 10-step trajectory tests: at the scratch hyps
+# (bias lr 0.1, batch 2) the mini model's training is chaotic on the CPU: a
+# change of its fp32 weights by one part in 1e7 moves its parameters by 5e-2
+# within 8 steps, on either side alone. At 1e-3 the same change moves them
+# by less than 2e-5 in 10 steps, so a 1e-3 bound there compares the recipes
+TRAJECTORY_HYP = dict(lr0=1e-3, warmup_bias_lr=1e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_fns(x64: bool = False):
+    """The JAX package's train step for the ``mini_weights`` model in fp32
+    (call it inside ``jax_training_as_port``), compiled once per process:
+
+    - ``step(state, rgb, ir, targets, tmask, rng)``, its
+      ``make_train_step`` with SGD at ``TRAJECTORY_HYP`` (the scratch
+      hyps at lr0 = warmup_bias_lr = 1e-3), 4 steps per epoch, 3 epochs,
+      batch 64 (so every micro-batch emits), whose warmup then spans 12
+      micro-batches;
+    - ``state(params, stats)``, a fresh TrainState for ``step``;
+    - ``wd``, the optimizer's scaled weight decay (the momentum buffer
+      after the first step is the gradient, plus ``wd`` times the
+      parameter for the decayed role).
+
+    With ``x64`` the model computes in float64 and ``state`` makes float64
+    parameters (build and call it inside ``float32_read_as_float64`` too)."""
+    import jax
+    import jax.numpy as jnp
+
+    from multispectral_object_detection_tpu.models import build_model
+    from multispectral_object_detection_tpu.models.detect import (
+        anchor_arrays)
+    from multispectral_object_detection_tpu.train.loss import (
+        DetectionLoss, LossHyp)
+    from multispectral_object_detection_tpu.train.optim import (
+        OptHyp, build_optimizer)
+    from multispectral_object_detection_tpu.train.trainer import (
+        TrainState, make_train_step)
+
+    dtype = jnp.float64 if x64 else jnp.float32
+    model = build_model(mini_weights(0)["cfg"], dtype=dtype)
+    spec = model.spec
+    loss_fn = DetectionLoss(nc=2, anchors_px=anchor_arrays(spec.anchors),
+                            strides=spec.strides, hyp=LossHyp())
+    hyp = OptHyp(**TRAJECTORY_HYP)
+    tx, _ = build_optimizer(mini_weights(0)["params"], hyp, 4, 3, 1, 64,
+                            warmup_min_iters=1)
+    step = make_train_step(model, loss_fn, tx, two_stream=True,
+                           donate=False)
+
+    def state(params, stats):
+        copy = functools.partial(jax.tree.map,
+                                 lambda a: jnp.array(a, dtype=dtype))
+        return TrainState(params=copy(params), batch_stats=copy(stats),
+                          opt_state=tx.init(copy(params)),
+                          ema_params=copy(params), ema_stats=copy(stats),
+                          step=jnp.zeros((), jnp.int32),
+                          ema_updates=jnp.zeros((), jnp.int32))
+
+    return dict(step=step, state=state, wd=hyp.weight_decay * 64 * 1 / 64)

@@ -6,8 +6,8 @@ coordinates and confidences within 1e-4 (the forwards differ by fp32
 summation order). The port's batched (``--batch-size 3``: a padded short
 batch) and headless (``--nosave``) paths against its own batch-1 path
 within 1e-6, the bound tests/test_detect_batched.py holds the JAX CLI to.
-Then every other flag of the port's CLI once on the same set, and its
-guards."""
+Then every other flag of the port's CLI once on the same set, ``--update``
+stripping a training checkpoint, and the guards."""
 
 from pathlib import Path
 
@@ -124,9 +124,40 @@ def test_images_are_png_without_cv2(ws, monkeypatch):
     assert out[:2] == ["000000_ir.png", "000000_rgb.png"] and len(out) == 8
 
 
+def test_update_strips_a_checkpoint_directory(ws, tmp_path):
+    """--update after the run: the port's training state (``state.pt``)
+    becomes ``model.pt``, its EMA weights, which a second run reads to the
+    same labels."""
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model)
+    from multispectral_object_detection_tpu_torch.train.optim import (
+        OptHyp, build_optimizer)
+    from multispectral_object_detection_tpu_torch.train.trainer import (
+        TrainState)
+    from multispectral_object_detection_tpu_torch.utils.checkpoint import (
+        load_inference_params, save_checkpoint)
+
+    w = mini_weights(0)
+    model = build_model(w["cfg"])
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in w["sd"].items()})
+    state = TrainState(model, build_optimizer(model, OptHyp(), 4, 3))
+    ck = tmp_path / "last"
+    save_checkpoint(ck, state, epoch=0, best_fitness=0.0)
+    r = _port(ws, "upd", ["--save-txt", "--update"], weights=[str(ck)])
+    assert (ck / "model.pt").is_file() and r["n_images"] == 4
+    sd = load_inference_params(ck)
+    for k, v in w["sd"].items():
+        np.testing.assert_array_equal(sd[k], v)
+    _port(ws, "upd2", ["--save-txt"], weights=[str(ck)])
+    a, b = _labels(ws, "upd"), _labels(ws, "upd2")
+    assert sorted(a) == sorted(b)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f])
+
+
 def test_guards(ws, capsys):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 5"):
-        _port(ws, "upd", ["--update"])
+    with pytest.raises(SystemExit, match="strips checkpoint directories"):
+        _port(ws, "upd", ["--update"], weights=[str(ws["root"] / "w.pt")])
     with pytest.raises(SystemExit, match="single-checkpoint"):
         _port(ws, "ens", ["--int8"], weights=ws["ckpts"])
     if not torch.cuda.is_available():

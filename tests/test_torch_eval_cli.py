@@ -6,9 +6,10 @@ the TTA forward is the JAX-pinned ``tta_forward`` of tests/test_torch_c3.py
 on the inputs / 255), and the two test CLIs on one JAX checkpoint
 directory and one synthetic PNG set: mAP50 and mAP within 0.1 pt (the
 eval-parity bar of PARITY_synthetic.md), default and ``--save-hybrid``,
-and the ``--save-txt --save-conf`` files line for line to 1e-4. Also the
-CLI's guards: no GPU without ``--device cpu``, the flags of later slices,
-and the single-checkpoint flags."""
+and the ``--save-txt --save-conf`` files line for line to 1e-4, and
+``--compute-loss``'s val loss within 1e-5 relative. Also the CLI's guards:
+no GPU without ``--device cpu``, the flags of later slices (one of the
+train CLI's among them), and the single-checkpoint flags."""
 
 import json
 from pathlib import Path
@@ -22,7 +23,7 @@ import yaml
 from multispectral_object_detection_tpu.cli.test_cli import main as jax_main
 from multispectral_object_detection_tpu.ops import ds_fusion as jds
 from multispectral_object_detection_tpu_torch import hub
-from multispectral_object_detection_tpu_torch.cli import test_cli
+from multispectral_object_detection_tpu_torch.cli import test_cli, train_cli
 from multispectral_object_detection_tpu_torch.data.imageio import write_png
 from multispectral_object_detection_tpu_torch.data.synthetic import (
     make_paired_dataset)
@@ -79,7 +80,8 @@ def _port(ws, argv, data=None):
 
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_test_clis_agree_on_one_checkpoint(ws, hybrid):
-    extra = ["--save-hybrid"] if hybrid else ["--save-txt", "--save-conf"]
+    extra = ["--save-hybrid"] if hybrid else ["--save-txt", "--save-conf",
+                                               "--compute-loss"]
     name = "hyb" if hybrid else "val"
     want = jax_main(_common(ws, f"jax_{name}") + [
         "--data", ws["data_yaml"], "--weights", ws["ckpts"][0]] + extra)
@@ -92,6 +94,13 @@ def test_test_clis_agree_on_one_checkpoint(ws, hybrid):
     if hybrid:  # the ground truth, injected at confidence 1, finds itself
         assert got["map50"] > 0.95 and got["map"] > 0.95
         return
+    # the val loss with the trainer's gains. 1e-2: the JAX CLI jits its
+    # loss, and XLA's fused program gives this set's second batch a box
+    # loss 0.5 % off the same JAX loss run op by op, which the port matches
+    # within 1e-7 (test_val_loss_matches_jax_evaluate holds it to 1e-5)
+    assert len(got["val_loss"]) == 3
+    for g, w in zip(got["val_loss"], want["val_loss"]):
+        assert abs(g - w) <= 1e-2 * abs(w), (got["val_loss"], w)
     jdir = ws["root"] / "runs" / "jax_val" / "labels"
     tdir = ws["root"] / "runs" / "port_val" / "labels"
     files = sorted(p.name for p in jdir.glob("*.txt"))
@@ -113,6 +122,57 @@ def test_test_clis_agree_on_one_checkpoint(ws, hybrid):
             unused.remove(hit)
         n_lines += len(a)
     assert n_lines > 0
+
+
+def test_val_loss_matches_jax_evaluate(ws):
+    """``evaluate(loss_fn=...)`` of both packages on the mini set (square
+    batches, the fused forward), the JAX loss run op by op (its
+    ``evaluate`` caches a jitted copy on ``loss_fn._jitted``; preset here
+    to the plain call): within 1e-5 relative, fp32 sums of the same
+    terms."""
+    from multispectral_object_detection_tpu.data import datasets as jdata
+    from multispectral_object_detection_tpu.train.evaluator import (
+        evaluate as jax_evaluate)
+    from multispectral_object_detection_tpu.train.loss import (
+        DetectionLoss as JaxLoss)
+    from multispectral_object_detection_tpu.train.loss import LossHyp
+    from multispectral_object_detection_tpu.train.loss import (
+        scale_gains as jax_gains)
+    from multispectral_object_detection_tpu_torch.data import datasets
+    from multispectral_object_detection_tpu_torch.models.detect import (
+        anchor_arrays)
+    from multispectral_object_detection_tpu_torch.train import evaluator
+    from multispectral_object_detection_tpu_torch.train import loss as tloss
+
+    d = ws["data"]
+    jds = jdata.PairedDetectionDataset.from_sources(
+        d["val_rgb"], d["val_ir"], img_size=IMG, nc=NC)
+    tds = datasets.PairedDetectionDataset.from_sources(
+        d["val_rgb"], d["val_ir"], img_size=IMG, nc=NC)
+    model = hub.create(ws["cfg"], NC, weights=ws["ckpts"][0],
+                       dtype=torch.float32, device="cpu")
+    anchors, strides = anchor_arrays(model.spec.anchors), model.spec.strides
+    jloss = JaxLoss(NC, anchors, strides, jax_gains(LossHyp(), NC, IMG, 3))
+    jloss._jitted = jloss.__call__
+    jf = jax_fused_forward()
+
+    def jfwd(params, stats, rgb, ir):
+        raw, dets = jf(params, rgb, ir)
+        return dets, raw
+
+    # batches of 2: the JAX forward's compiled shape of fwd_inputs
+    want = jax_evaluate(jfwd, ws["members"][0]["fparams"], {},
+                        jdata.BatchLoader(jds, 2, shuffle=False,
+                                          drop_last=False), NC,
+                        loss_fn=jloss)
+    tl = tloss.DetectionLoss(NC, anchors, strides, tloss.scale_gains(
+        tloss.LossHyp(), NC, IMG, 3))
+    got = evaluator.evaluate(eval_forward.make_eval_forward(model),
+                             datasets.BatchLoader(tds, 2), NC, device="cpu",
+                             loss_fn=tl)
+    for g, w in zip(got["val_loss"], want["val_loss"]):
+        assert abs(g - w) <= 1e-5 * abs(w), (got["val_loss"],
+                                             want["val_loss"])
 
 
 def test_port_cli_ensembles_tta_int8_speed_and_coco(ws, tmp_path):
@@ -229,14 +289,18 @@ def test_cli_without_gpu_and_without_device_cpu_prints_no_metric(
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--compute-loss"], "item 5"), (["--plots"], "item 7"),
+    (["--sync-bn"], "item 6"), (["--plots"], "item 7"),
     (["--data-parallel", "2"], "item 6"), (["--wandb"], "item 7")])
 def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
-        _port(ws, ["--weights", ws["ckpts"][0]] + flag)
+        if flag == ["--sync-bn"]:  # the train CLI's, beside the test CLI's
+            train_cli.run(train_cli.parse_args(
+                ["--data", ws["data_yaml"], "--device", "cpu"] + flag))
+        else:
+            _port(ws, ["--weights", ws["ckpts"][0]] + flag)
 
 
-@pytest.mark.parametrize("flag", ["--augment", "--int8"])
+@pytest.mark.parametrize("flag", ["--augment", "--int8", "--compute-loss"])
 def test_single_checkpoint_flags_refuse_an_ensemble(ws, flag):
     with pytest.raises(SystemExit, match="single-checkpoint"):
         _port(ws, ["--weights"] + ws["ckpts"] + [flag])

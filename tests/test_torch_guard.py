@@ -1,6 +1,7 @@
-"""PyTorch port, guards: the package stands alone (no JAX, no flax, nothing
-of the JAX package, no yaml, cv2, PIL or flask at import), its entry points
-(``Detector`` and its ``__call__``, the detect CLI, the REST service)
+"""PyTorch port, guards: the package stands alone (no JAX, no flax, no
+optax, nothing of the JAX package, no yaml, cv2, PIL or flask at import,
+the training modules included), its entry points (``Detector`` and its
+``__call__``, the detect CLI, the REST service)
 default to CUDA and refuse to fall back to the CPU, and chip_smoke.py fails
 without a GPU."""
 
@@ -26,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "yaml", "cv2", "PIL", "flask"):
+for name in ("jax", "flax", "optax", "yaml", "cv2", "PIL", "flask"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import multispectral_object_detection_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -43,7 +44,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 43  # every module of the package
+    assert int(r.stdout.split()[-1]) >= 51  # every module of the package
 
 
 def _require_no_cuda():

@@ -1,0 +1,147 @@
+"""PyTorch port, the train CLI on the CPU (``--device cpu``) on the mini
+n-scale two-stream CFT config (nc=2, 64 px, batch 4, 8 synthetic PNG
+pairs, fp32): two epochs warm-started from a JAX checkpoint directory
+write ``hyp.yaml``, ``opt.yaml``, ``results.txt`` (with the val loss),
+``final.json`` and a ``last`` checkpoint stripped to ``model.pt`` that the
+test CLI reads; a bare ``--resume`` continues at epoch 2. Every flag of a
+later slice exits naming its ROADMAP item, and without a GPU and without
+``--device cpu`` the CLI exits non-zero naming CUDA. The training bench
+prints its JSON line on the CPU and likewise needs a GPU by default."""
+
+import json
+from pathlib import Path
+
+import pytest
+import torch
+import yaml
+
+from multispectral_object_detection_tpu_torch.cli import test_cli, train_cli
+from multispectral_object_detection_tpu_torch.data.synthetic import (
+    make_paired_dataset)
+from multispectral_object_detection_tpu_torch.models.configs import get_config
+from multispectral_object_detection_tpu_torch.models.model import (
+    build_model, init_weights)
+from tests._torch_port import (  # noqa: F401
+    mini_weights, share_torch_threads, write_jax_checkpoint)
+
+CFG, IMG = "yolov5n_fusion_transformerx3", 64
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    root = tmp_path_factory.mktemp("traincli")
+    rgb, ir = make_paired_dataset(str(root / "data"), n_images=8,
+                                  img_size=IMG, nc=2, seed=5)
+    data = {"train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
+            "nc": 2, "names": ["red", "blue"]}
+    w = mini_weights(1)
+    jdir = write_jax_checkpoint(root / "jax", w["params"], w["stats"])
+    return dict(root=root, data=data, jax=jdir)
+
+
+def _run(ws, argv):
+    args = train_cli.parse_args(["--data", "unused", "--cfg", CFG,
+                                 "--batch-size", "4", "--img-size", str(IMG),
+                                 "--fp32", "--device", "cpu", "--project",
+                                 str(ws["root"] / "runs")] + argv)
+    args.data = ws["data"]  # a dict, as chip_smoke.py passes it
+    return train_cli.run(args)
+
+
+def test_two_epochs_warm_start_resume_and_strip(ws, caplog):
+    caplog.set_level("INFO")
+    r = _run(ws, ["--epochs", "2", "--weights", ws["jax"],
+                  "--compute-val-loss"])
+    run = Path(r["save_dir"])
+    assert "warm start: " in caplog.text and ws["jax"] in caplog.text
+    lines = (run / "results.txt").read_text().splitlines()
+    assert [ln.split()[1] for ln in lines] == ["0/1", "1/1"]
+    assert all("mAP50" in ln and "val box" in ln for ln in lines)
+    final = json.loads((run / "final.json").read_text())
+    assert final["seen"] == 8 and len(final["val_loss"]) == 3
+    assert r["eval_forwards"] == 2 * 2  # 2 evals of 2 val batches
+    hyp = yaml.safe_load((run / "hyp.yaml").read_text())
+    assert hyp["lr0"] == 0.01 and hyp["label_smoothing"] == 0.0
+    assert yaml.safe_load((run / "opt.yaml").read_text())["epochs"] == 2
+    meta = json.loads((run / "last" / "meta.json").read_text())
+    assert meta["epoch"] == 1 and meta["stripped"] is True
+    assert (run / "last" / "model.pt").is_file()
+    # the test CLI reads the stripped checkpoint
+    assert _eval(ws, run / "last")["seen"] == 8
+    # bare --resume: the newest last/ under --project, at epoch 2
+    caplog.clear()
+    r2 = _run(ws, ["--epochs", "3", "--resume", "--noval"])
+    assert f"resumed from {run / 'last'} at epoch 2" in caplog.text
+    lines = (Path(r2["save_dir"]) / "results.txt").read_text().splitlines()
+    assert [ln.split()[1] for ln in lines] == ["2/2"]
+
+
+def _eval(ws, weights):
+    args = test_cli.parse_args(["--data", "unused", "--cfg", CFG,
+                                "--weights", str(weights), "--img-size",
+                                str(IMG), "--batch-size", "4", "--fp32",
+                                "--device", "cpu"])
+    args.data = ws["data"]
+    return test_cli.run(args)
+
+
+def test_one_epoch_with_the_other_flags(ws):
+    flags = ["--rect", "--remat", "dots", "--save-period", "1",
+             "--ckpt-every", "2", "--eval-every", "2", "--multi-scale",
+             "--freeze", "model.0.", "--cache-images", "--adam",
+             "--single-cls", "--label-smoothing", "0.1", "--noautoanchor"]
+    r = _run(ws, ["--epochs", "1", "--name", "flags"] + flags)
+    run = Path(r["save_dir"])
+    line = (run / "results.txt").read_text().splitlines()
+    assert len(line) == 1 and "total" in line[0] and "mAP50" in line[0]
+    # epoch0/ beside last/ (the final epoch)
+    assert (run / "epoch0" / "state.pt").is_file()
+    assert (run / "last" / "model.pt").is_file()
+    state = torch.load(run / "epoch0" / "state.pt", weights_only=True)
+    assert "v" in state["opt"]  # Adam's second moments
+    # --freeze model.0.: those parameters keep their initial values
+    init = init_weights(build_model(get_config(CFG, nc=1)),
+                        torch.Generator().manual_seed(0)).state_dict()
+    moved = {k for k in init if k.startswith("model.") and
+             init[k].is_floating_point() and
+             not torch.equal(state["model"][k], init[k])}
+    assert moved and not any(k.startswith("model.0.") and "running" not in k
+                             for k in moved)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--device-aug"], "item 5, its remainder"),
+    (["--quad"], "item 5, its remainder"),
+    (["--evolve", "3"], "item 5, its remainder"),
+    (["--n-model", "2"], "item 6"), (["--sync-bn"], "item 6"),
+    (["--local_rank", "0"], "item 6"), (["--wandb"], "item 7"),
+    (["--upload-dataset"], "item 7"), (["--entity", "me"], "item 7"),
+    (["--bbox-interval", "2"], "item 7"),
+    (["--artifact-alias", "v1"], "item 7")])
+def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
+        _run(ws, flag)
+
+
+def test_cli_without_gpu_and_without_device_cpu_exits(ws, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    rc = train_cli.main(["--data", "unused.yaml", "--cfg", CFG, "--project",
+                         str(ws["root"] / "gpu")])
+    assert rc != 0 and "CUDA" in capsys.readouterr().err
+    assert not (ws["root"] / "gpu").exists()
+
+
+def test_bench_train_prints_one_json_line_and_needs_a_gpu(capsys):
+    from multispectral_object_detection_tpu_torch import bench_train
+
+    argv = ["--cfg", CFG, "--img", "64", "--batch", "2", "--steps", "2",
+            "--warmup", "1", "--remat", "blocks"]
+    assert bench_train.main(argv + ["--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"].endswith("_remat_blocks")
+    assert out["peak_gb"] is None and out["state_gb"] is None
+    assert len(out["losses"]) == 3 and out["ms_per_step"] > 0
+    if not torch.cuda.is_available():
+        assert bench_train.main(argv) == 1
+        assert "CUDA" in capsys.readouterr().err
