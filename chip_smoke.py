@@ -80,14 +80,31 @@ failure raises and the script exits non-zero:
    ``--resume`` at epoch 2, the stripped checkpoint through the test CLI
    with ``--compute-loss``, and the detect CLI's ``--update``; a
    ``{"train": {...}}`` line.
-9. a ``{"kernels": [...]}`` line, the card line, and the final
+9. device augmentation and the parallel path: (a) the device mosaic
+   (``ops/augment_device.py``) at l@640 bs8 on tiles of the synthetic
+   pairs, the card against the CPU on the same draws, ms per batch by CUDA
+   events beside the host's ``collate_tiles`` and host-augmented
+   ``collate_batch`` (median of 5 batches after one, decodes cached); (b) the train CLI with ``--device-aug`` (2 epochs of
+   the l model at 640, batch 8, 2 steps each) and ``--quad`` (1 epoch),
+   K1's 168 launches per EMA eval forward, and ``--evolve 2`` on the n
+   model; (c) the data-parallel step and eval at world 1 over NCCL against
+   one process, bit-equal under deterministic algorithms (losses, BatchNorm
+   statistics, gradients and updated weights; the eval metrics equal);
+   (d) two gloo ranks sharing
+   the card, an fp32 l@640 step of 4 images per rank against one
+   process's step on all 8 (loss, statistics, gradients); a
+   ``{"parallel_aug": {...}}`` line.
+10. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
+import statistics
 import shutil
 import subprocess
 import sys
@@ -1598,6 +1615,457 @@ def _train_cli_runs(torch, device, card: str) -> dict:
     return out
 
 
+# phase 9: device-side augmentation, --quad, --evolve, and the parallel path
+AUG_BATCH, AUG_MAX_LABELS = 8, 30  # l@640 bs8, labels per tile
+HOST_BATCHES = 5  # host batches timed after one, for a median
+EVOLVE_IMG, EVOLVE_GENERATIONS = 128, 2
+# the device mosaic, card against CPU on the same draws: the resampling
+# products accumulate in another order (within 1 level at >= 99.9 % of
+# pixels, as tests/test_torch_augment_device.py holds it to JAX's)
+TOL_MOSAIC_SHARE, TOL_MOSAIC_TARGETS = 0.999, 1e-4
+# a parallel step against one process, on the card. 9c (bf16, world 1):
+# bit-equal under deterministic algorithms. 9d (fp32, TF32 off, two ranks
+# of 4 images against one of 8): the loss within 8.1's bound, the
+# BatchNorm statistics within TOL_DP_STATS and the gradients within
+# TOL_DP_L2 relative L2 over all tensors (the batch's sums split over two
+# ranks, and cuDNN's algorithms for 4 images and 8)
+TOL_DP_STATS, TOL_DP_L2 = 1e-4, 1e-3
+
+
+def _l_train_state(torch, device, mesh=None, dtype=None):
+    """The l model's train state and step as bench_train builds them
+    (nc=3, init seed 0), on ``mesh`` when given."""
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.detect import (
+        anchor_arrays)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, init_weights)
+    from multispectral_object_detection_tpu_torch.parallel import mesh as pm
+    from multispectral_object_detection_tpu_torch.train.loss import (
+        DetectionLoss, LossHyp)
+    from multispectral_object_detection_tpu_torch.train.optim import (
+        OptHyp, build_optimizer)
+    from multispectral_object_detection_tpu_torch.train.trainer import (
+        TrainState, make_train_step)
+
+    model = build_model(get_config("yolov5l_fusion_transformerx3", nc=3),
+                        dtype=dtype or torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device).to(memory_format=torch.channels_last)
+    if mesh is not None:
+        pm.broadcast_module(model)
+        pm.parallelize(model, mesh)
+    spec = model.spec
+    loss_fn = DetectionLoss(3, anchor_arrays(spec.anchors), spec.strides,
+                            LossHyp(), mesh=mesh)
+    opt = build_optimizer(model, OptHyp(), 100, 300, 8, TRAIN_BATCH)
+    state = TrainState(model, opt, mesh)
+    seen = []
+    update = opt.update
+    opt.update = lambda g: (seen.append([t.detach().clone() for t in g]),
+                            update(g))[1]
+    return state, make_train_step(state, loss_fn), seen
+
+
+def _step_result(torch, state, step, seen, batch, seed: int) -> dict:
+    m = step(*batch, seed=seed)
+    return {"loss": {k: float(v) for k, v in m.items()},
+            "grads": [g.float().cpu() for g in seen[-1]],
+            "stats": {k: v.float().cpu() for k, v in
+                      state.model.state_dict().items() if "running_" in k},
+            "params": [p.detach().float().cpu()
+                       for p in state.model.parameters()]}
+
+
+def _grad_l2(a, b) -> float:
+    """||a - b|| / ||b|| over all gradient tensors."""
+    num = sum(float((x - y).double().square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def _rows(batch, r: int, n: int):
+    """Rank r of n's images of a synthetic batch, targets re-indexed."""
+    rgb, ir, tg, tm = batch
+    b = rgb.shape[0] // n
+    k = tg.shape[0] // rgb.shape[0]  # target rows per image
+    t = tg[r * b * k:(r + 1) * b * k].copy()
+    t[:, 0] -= r * b
+    return rgb[r * b:(r + 1) * b], ir[r * b:(r + 1) * b], t, \
+        tm[r * b * k:(r + 1) * b * k]
+
+
+def _gloo_rank_step() -> dict:
+    """9d, on each of two gloo ranks sharing cuda:0: which collectives
+    gloo runs on CUDA tensors, then one fp32 l@640 step of 4 images per
+    rank (dropout on); rank 0 then runs the one-process step on all 8 and
+    compares."""
+    import torch
+    import torch.distributed as dist
+
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from multispectral_object_detection_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    probe = {}
+    x = torch.ones(4, device=device)
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(x)),
+                     ("broadcast", lambda: dist.broadcast(x, 0)),
+                     ("all_gather", lambda: dist.all_gather(
+                         [torch.empty_like(x) for _ in range(2)], x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except Exception as e:  # reported, and the phase fails on it
+            probe[name] = f"{type(e).__name__}: {e}"
+    check(all(v == "ok" for v in probe.values()),
+          f"gloo on CUDA tensors: {probe}")
+    mesh = pm.make_mesh(2, 1)
+    batch = synthetic_batch(TRAIN_BATCH, TRAIN_IMG, 3, 64, seed=0)
+    state, step, seen = _l_train_state(torch, device, mesh, torch.float32)
+    part = tuple(torch.from_numpy(a).to(device)
+                 for a in _rows(batch, mesh.rank, 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = _step_result(torch, state, step, seen, part, seed=5)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    del state, step, seen
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if mesh.rank != 0:
+        return None
+    ones = []
+    for _ in range(2):  # twice: the one-process step's own spread
+        state, step, seen = _l_train_state(torch, device, None,
+                                           torch.float32)
+        ones.append(_step_result(torch, state, step, seen, tuple(
+            torch.from_numpy(a).to(device) for a in batch), seed=5))
+        del state, step, seen
+        torch.cuda.empty_cache()
+    one = ones[0]
+    loss_rel = abs(dp["loss"]["total"] - one["loss"]["total"]) \
+        / abs(one["loss"]["total"])
+    stats_rel = max(float((dp["stats"][k] - v).abs().max()
+                          / v.abs().max().clamp(min=1e-12))
+                    for k, v in one["stats"].items())
+    return {"probe": probe, "loss_rel": loss_rel,
+            "grad_rel": max(_grad_errors(dp["grads"], one["grads"])),
+            "grad_l2": _grad_l2(dp["grads"], one["grads"]),
+            "spread_grad_rel": max(_grad_errors(ones[1]["grads"],
+                                                one["grads"])),
+            "spread_grad_l2": _grad_l2(ones[1]["grads"], one["grads"]),
+            "stats_rel": stats_rel, "step_s": dp_s,
+            "loss": [dp["loss"]["total"], one["loss"]["total"]]}
+
+
+def _mosaic_9a(torch, device, card, data) -> dict:
+    """9a: the device mosaic at l@640 bs8, card against CPU on the same
+    draws, timed beside the host's tile and host-augmented batches."""
+    import random
+
+    from multispectral_object_detection_tpu_torch.data.datasets import (
+        PairedDetectionDataset, collate_batch, collate_tiles)
+    from multispectral_object_detection_tpu_torch.data.hyps import load_hyp
+    from multispectral_object_detection_tpu_torch.ops.augment_device import (
+        device_mosaic_batch, draw_mosaic)
+
+    hyp = load_hyp("scratch")
+    ds = PairedDetectionDataset.from_sources(
+        data["train_rgb"], data["train_ir"], img_size=TRAIN_IMG,
+        augment=True, hyp=hyp, cache_images=True)
+    idx = list(range(AUG_BATCH))
+    for i in range(len(ds)):  # decode every pair once (cache_images)
+        ds.get_tile(i)
+
+    def host_ms(make):  # a batch each call: the first untimed
+        make(0)
+        times = []
+        for k in range(1, HOST_BATCHES + 1):
+            t0 = time.perf_counter()
+            make(k)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    tiles = collate_tiles(ds, idx, random.Random(1), AUG_MAX_LABELS)
+    host_tiles = host_ms(lambda k: collate_tiles(
+        ds, idx, random.Random(1 + k), AUG_MAX_LABELS))
+    host_aug = host_ms(lambda k: collate_batch(
+        [ds.get(i, random.Random(AUG_BATCH * k + i)) for i in idx], idx))
+    host_tiles_ms = statistics.median(host_tiles)
+    host_aug_ms = statistics.median(host_aug)
+    draws = draw_mosaic(torch.Generator().manual_seed(2), AUG_BATCH,
+                        TRAIN_IMG, hyp)
+    args_cpu = [torch.from_numpy(tiles[k]) for k in (
+        "tiles_rgb", "tiles_ir", "tile_labels", "tile_lmask")]
+    args_gpu = [t.to(device) for t in args_cpu]
+    got = device_mosaic_batch(*args_gpu, draws, TRAIN_IMG)
+    want = device_mosaic_batch(*args_cpu, draws, TRAIN_IMG)
+    share = min(float(((g.cpu().int() - w.int()).abs() <= 1).float().mean())
+                for g, w in zip(got[:2], want[:2]))
+    t_err = float((got[2].cpu() - want[2]).abs()[want[3] > 0].max())
+    masks = bool(torch.equal(got[3].cpu(), want[3]))
+    mos_ms = cuda_ms(lambda: device_mosaic_batch(*args_gpu, draws,
+                                                 TRAIN_IMG), iters=10)
+    up_ms = cuda_ms(lambda: [torch.from_numpy(tiles[k]).to(device)
+                             for k in ("tiles_rgb", "tiles_ir")], iters=5)
+    print(f"  9a device mosaic l@{TRAIN_IMG} bs{AUG_BATCH}: card vs CPU "
+          f"pixels within 1 level {share:.6f}, targets {t_err:.2e}, masks "
+          f"equal {masks}; {mos_ms:.3f} ms per batch on the card (+ "
+          f"{up_ms:.3f} ms tile upload); host, decodes cached, median of "
+          f"{HOST_BATCHES} batches: collate_tiles {host_tiles_ms:.1f} ms "
+          f"({min(host_tiles):.1f}-{max(host_tiles):.1f}), host-augmented "
+          f"collate_batch {host_aug_ms:.1f} ms ({min(host_aug):.1f}-"
+          f"{max(host_aug):.1f}) per batch [{card}]")
+    check(share >= TOL_MOSAIC_SHARE and t_err <= TOL_MOSAIC_TARGETS
+          and masks, "device mosaic: card and CPU disagree")
+    return {"ms": mos_ms, "upload_ms": up_ms, "host_tiles_ms": host_tiles,
+            "host_augmented_ms": host_aug, "within_1_level": share,
+            "targets_err": t_err}
+
+
+def _train_cli_9b(torch, card, data, project) -> dict:
+    """9b: the train CLI with --device-aug (2 epochs) and --quad (1) at
+    l@640 bs8, and --evolve 2 on the n model; K1's launches per EMA eval
+    forward."""
+    from multispectral_object_detection_tpu_torch.cli import train_cli
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    def train(argv):
+        args = train_cli.parse_args(
+            ["--data", "unused", "--cfg", "yolov5l_fusion_transformerx3",
+             "--img-size", str(TRAIN_IMG), "--batch-size", str(TRAIN_BATCH),
+             "--project", str(project)] + argv)
+        args.data = data
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        r = (train_cli.evolve if args.evolve else train_cli.run)(args)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, sum(cs.LAUNCHES.values())
+
+    cli = {}
+    for name, argv in (("device_aug", ["--epochs", "2", "--device-aug",
+                                       "--nosave"]),
+                       ("quad", ["--epochs", "1", "--quad", "--nosave"])):
+        r, secs, k1 = train(argv + ["--name", name])
+        lines = (Path(r["save_dir"]) / "results.txt").read_text() \
+            .splitlines()
+        epochs = [float(ln.split("(")[1].split("s)")[0]) for ln in lines]
+        print(f"  9b train CLI {' '.join(argv)}: {secs:.1f} s, epochs "
+              f"{epochs} s, {r['eval_forwards']} EMA eval forwards, {k1} K1 "
+              f"launches [{card}]")
+        for ln in lines:
+            print(f"      {ln}")
+        check(len(lines) == int(argv[1])
+              and all("mAP50" in ln for ln in lines),
+              f"{name}: results.txt lacks an epoch's eval")
+        check(k1 == 168 * r["eval_forwards"] > 0,
+              f"{name}: K1 launches {k1} != 168 x {r['eval_forwards']}")
+        cli[name] = {"seconds": secs, "epoch_s": epochs, "k1": k1,
+                     "eval_forwards": r["eval_forwards"]}
+    r, secs, k1 = train(["--cfg", "yolov5n_fusion_transformerx3",
+                         "--img-size", str(EVOLVE_IMG), "--epochs", "1",
+                         "--evolve", str(EVOLVE_GENERATIONS), "--name", "evo"])
+    rows = (Path(project) / "evo_evolve" / "evolve.txt").read_text() \
+        .splitlines()
+    print(f"  9b train CLI --evolve {EVOLVE_GENERATIONS} (n model at "
+          f"{EVOLVE_IMG}): {secs:.1f} s, {len(rows)} evolve.txt rows, {k1} K1 "
+          f"launches")
+    check(len(rows) == EVOLVE_GENERATIONS and k1 > 0 and k1 % 168 == 0,
+          "--evolve: rows or K1 launches")
+    cli["evolve"] = {"seconds": secs, "rows": len(rows), "k1": k1}
+    return cli
+
+
+def _resample_matrix(torch, n_in: int, n_out: int, mode: str, device):
+    """(n_out, n_in) fp32 matrix of PyTorch's 1-D adaptive average pool
+    ("pool") or bilinear resize with align_corners=False ("linear")."""
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    for i in range(n_out):
+        if mode == "pool":
+            a, b = (i * n_in) // n_out, -(-(i + 1) * n_in // n_out)
+            m[i, a:b] = 1.0 / (b - a)
+        else:
+            src = max((i + 0.5) * n_in / n_out - 0.5, 0.0)
+            i0 = min(int(src), n_in - 1)
+            m[i, i0] += 1.0 - (src - i0)
+            m[i, min(i0 + 1, n_in - 1)] += src - i0
+    return m.float().to(device)
+
+
+def _by_matrices(torch, mode: str):
+    """A (B, C, H, W) -> (B, C, *out_hw) pool or resize as two matrix
+    products, whose backward needs no atomic adds."""
+    def resample(x, out_hw):
+        mh = _resample_matrix(torch, x.shape[2], out_hw[0], mode, x.device)
+        mw = _resample_matrix(torch, x.shape[3], out_hw[1], mode, x.device)
+        return torch.einsum("hH,bcHW,wW->bchw", mh, x.float(), mw) \
+            .to(x.dtype)
+    return resample
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Within: PyTorch's deterministic algorithms (cuDNN's, cuBLAS's fixed
+    workspace), and the CFT stages' adaptive pool and bilinear resize as
+    matrix products, because PyTorch's CUDA backward of both adds
+    atomically and has no deterministic version; restored on exit."""
+    from multispectral_object_detection_tpu_torch.models import fusion
+
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             cudnn.deterministic, cudnn.benchmark,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+             fusion.adaptive_avg_pool_2d, fusion.bilinear_resize_2d)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    fusion.adaptive_avg_pool_2d = _by_matrices(torch, "pool")
+    fusion.bilinear_resize_2d = _by_matrices(torch, "linear")
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        cudnn.deterministic, cudnn.benchmark = saved[1:3]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
+        fusion.adaptive_avg_pool_2d, fusion.bilinear_resize_2d = saved[4:]
+
+
+def _differences(torch, a, b) -> list:
+    """The names of a step's results that are not bit-equal."""
+    out = [f"loss {k}" for k in a["loss"] if a["loss"][k] != b["loss"][k]]
+    out += [k for k in a["stats"] if not torch.equal(a["stats"][k],
+                                                      b["stats"][k])]
+    for what in ("grads", "params"):
+        out += [f"{what} {i}" for i, (x, y) in enumerate(zip(a[what],
+                                                              b[what]))
+                if not torch.equal(x, y)]
+    return out
+
+
+def _world1_9c(torch, device, card, data, store) -> dict:
+    """9c: the data-parallel step and eval at world 1 over NCCL against
+    one process: the step bit-equal under deterministic algorithms (and
+    the one-process step equal to its own repeat there), the eval
+    metrics equal."""
+    import torch.distributed as dist
+
+    from multispectral_object_detection_tpu_torch.data.datasets import (
+        BatchLoader, PairedDetectionDataset)
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from multispectral_object_detection_tpu_torch.parallel import mesh as pm
+    from multispectral_object_detection_tpu_torch.train.evaluator import (
+        evaluate)
+    from multispectral_object_detection_tpu_torch.train.trainer import (
+        make_eval_forward)
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = pm.make_mesh(1, 1)
+        batch = tuple(torch.from_numpy(a).to(device) for a in synthetic_batch(
+            TRAIN_BATCH, TRAIN_IMG, 3, 64, seed=0))
+        runs = {}
+        for tag, m in (("one", None), ("one_again", None), ("dp", mesh)):
+            state, step, seen = _l_train_state(torch, device, m)
+            with _deterministic(torch):
+                runs[tag] = _step_result(torch, state, step, seen, batch, 4)
+            if tag == "dp":
+                loader = BatchLoader(PairedDetectionDataset.from_sources(
+                    data["val_rgb"], data["val_ir"], img_size=TRAIN_IMG),
+                    TRAIN_BATCH)
+                fwd = make_eval_forward(state)
+                ev = [evaluate(fwd, loader, 3, device=device, shard=s)
+                      for s in (None, pm.EvalShard(mesh, TRAIN_BATCH))]
+            del state, step, seen
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    one = runs["one"]
+    repeat = _differences(torch, runs["one_again"], one)
+    dp = _differences(torch, runs["dp"], one)
+    n = len(one["loss"]) + len(one["stats"]) + len(one["grads"]) \
+        + len(one["params"])
+    keys = ("mp", "mr", "map50", "map", "seen", "nms_candidates")
+    ev_equal = all(ev[0][k] == ev[1][k] for k in keys)
+    print(f"  9c world 1 over NCCL, l@{TRAIN_IMG} bs{TRAIN_BATCH} bf16, "
+          f"deterministic algorithms: of {n} results (losses, BatchNorm "
+          f"statistics, gradients, updated weights) the data-parallel step "
+          f"differs from one process's in {len(dp)} {dp[:4]}, one process "
+          f"from its repeat in {len(repeat)} {repeat[:4]}; eval metrics "
+          f"equal {ev_equal} (mAP50 {ev[1]['map50']:.5f}) [{card}]")
+    check(not repeat, "the one-process step is not deterministic: " +
+          ", ".join(repeat[:8]))
+    check(not dp, "the world-1 data-parallel step is not bit-equal to one "
+          "process's: " + ", ".join(dp[:8]))
+    check(ev_equal, "the world-1 data-parallel eval differs")
+    return {"results": n, "differ": len(dp), "repeat_differs": len(repeat),
+            "eval_equal": ev_equal}
+
+
+def _gloo_9d(card, store_dir) -> dict:
+    """9d: two gloo ranks sharing the card against one process."""
+    from multispectral_object_detection_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    r = pm.spawn(2, _gloo_rank_step, backend="gloo", timeout=600,
+                 store_dir=str(store_dir), threads=4)
+    secs = time.perf_counter() - t0
+    print(f"  9d two gloo ranks on cuda:0, l@{TRAIN_IMG} fp32, 4 images per "
+          f"rank: gloo on CUDA tensors {r['probe']}; loss {r['loss'][0]:.6f} "
+          f"vs one process {r['loss'][1]:.6f} (rel {r['loss_rel']:.3g}), "
+          f"gradients worst tensor rel {r['grad_rel']:.3g}, all rel L2 "
+          f"{r['grad_l2']:.3g} (one process twice: {r['spread_grad_rel']:.3g}"
+          f", {r['spread_grad_l2']:.3g}), BatchNorm statistics rel "
+          f"{r['stats_rel']:.3g}; the ranks' step {r['step_s']:.2f} s "
+          f"(first, with its collectives); {secs:.1f} s in all [{card}]")
+    check(r["loss_rel"] <= TOL_TRAIN_LOSS and r["stats_rel"] <= TOL_DP_STATS
+          and r["grad_l2"] <= TOL_DP_L2,
+          "two gloo ranks disagree with one process")
+    r["seconds"] = secs
+    return r
+
+
+def phase_parallel_aug(torch, device, card: str) -> dict:
+    """Phase 9: (a) the device mosaic; (b) the train CLI with --device-aug,
+    --quad and --evolve; (c) the data-parallel step and eval at world 1
+    over NCCL; (d) two gloo ranks on the card."""
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_par_"))
+    try:
+        rgb_dir, ir_dir = make_paired_dataset(str(tmp / "data"),
+                                              n_images=TRAIN_CLI_IMAGES,
+                                              img_size=TRAIN_IMG, nc=2,
+                                              seed=7)
+        data = {"train_rgb": rgb_dir, "train_ir": ir_dir, "val_rgb": rgb_dir,
+                "val_ir": ir_dir, "nc": 2, "names": ["red", "blue"]}
+        out["mosaic"] = _mosaic_9a(torch, device, card, data)
+        torch.cuda.empty_cache()
+        out["cli"] = _train_cli_9b(torch, card, data, tmp / "runs")
+        out["world1"] = _world1_9c(torch, device, card, data, tmp / "store")
+        torch.cuda.empty_cache()
+        out["gloo_2_ranks"] = _gloo_9d(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
 def main() -> int:
     import torch
 
@@ -1645,6 +2113,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(torch, device, card)
     print(f"phase 8: training on the card in {train['seconds']:.1f} s")
+    par = phase_parallel_aug(torch, device, card)
+    print(f"phase 9: device augmentation, --quad, --evolve and the parallel "
+          f"path in {par['seconds']:.1f} s")
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -1657,6 +2128,7 @@ def main() -> int:
     print(json.dumps({"eval": eval_runs}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"parallel_aug": par}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ defaults to CUDA and fails without a GPU; ``--device cpu`` runs on the CPU.
 ``run`` takes the parsed arguments, where ``data`` may also be a dict.
 
 ``--compute-loss`` adds the val loss (box, obj, cls) with the trainer's
-gains. Flags whose modules are not ported yet exit with a message naming
-the ROADMAP item that brings them: ``--plots``, ``--data-parallel`` and
+gains. ``--data-parallel N`` splits each batch over N ranks (forward and
+NMS per rank, detections gathered, metrics on rank 0;
+parallel/mesh.py): under a launcher (``torchrun --nproc-per-node N``) it
+takes the launched ranks, else it starts them itself; NCCL on CUDA, gloo
+with ``--device cpu``. Flags whose modules are not ported yet exit with a
+message naming the ROADMAP item that brings them: ``--plots`` and
 ``--wandb``.
 """
 
@@ -37,8 +41,6 @@ logger = logging.getLogger(__name__)
 DEFERRED = {
     "plots": "--plots needs utils/plots.py (ROADMAP queue 1, item 7, the "
              "long tail)",
-    "data_parallel": "--data-parallel comes with the parallel port "
-                     "(ROADMAP queue 1, item 6)",
     "wandb": "--wandb needs utils/loggers.py (ROADMAP queue 1, item 7, the "
              "long tail)",
 }
@@ -102,7 +104,8 @@ def parse_args(argv=None):
                     help="'' = cuda (fails without a GPU), 'cpu', 'cuda:N' "
                          "or a CUDA index N")
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="not ported yet")
+                    help="split eval batches over N ranks (0 = one "
+                         "process); started here unless launched")
     return ap.parse_args(argv)
 
 
@@ -123,12 +126,21 @@ def _check_flags(args) -> None:
         raise SystemExit("--augment cannot compute the val loss (the TTA "
                          "scales' raw outputs differ in shape); drop "
                          "--compute-loss")
+    if args.augment and args.data_parallel > 1:
+        raise SystemExit("--augment is single-device; drop --data-parallel")
     if len(args.weights) > 1:
         for on, flag in ((args.augment, "--augment"), (args.int8, "--int8"),
-                         (args.compute_loss, "--compute-loss")):
+                         (args.compute_loss, "--compute-loss"),
+                         (args.data_parallel > 1, "--data-parallel")):
             if on:
                 raise SystemExit(f"{flag} is single-checkpoint; drop it or "
                                  f"pass one --weights")
+    if args.int8 and args.data_parallel > 1:
+        raise SystemExit("--int8 is single-device; drop --data-parallel")
+    n = args.data_parallel
+    if n > 1 and args.batch_size % n:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
+                         f"by --data-parallel {n}")
 
 
 def build_forward(args, data: dict, device: torch.device):
@@ -183,6 +195,23 @@ def run(args) -> dict:
 
     _check_flags(args)
     device = device_from_arg(args.device)
+    shard = None
+    if args.data_parallel > 1 and args.task in ("val", "test"):
+        from ..parallel import mesh as pm
+
+        n = args.data_parallel
+        world, device = pm.init_distributed(device)
+        if world == 1:  # no launcher: start the ranks here
+            if device.type == "cuda" and torch.cuda.device_count() < n:
+                raise SystemExit(f"--data-parallel {n} needs {n} devices, "
+                                 f"found {torch.cuda.device_count()}")
+            return pm.spawn(n, run, args, backend="nccl"
+                            if device.type == "cuda" else "gloo")
+        if world != n:
+            raise SystemExit(f"--data-parallel {n} but {world} ranks were "
+                             f"launched")
+        shard = pm.EvalShard(pm.make_mesh(n, 1), args.batch_size)
+        logger.info(f"data-parallel eval over {n} ranks")
     if args.task == "study":
         return study_task(args)
     data = _load_data(args.data)
@@ -205,11 +234,12 @@ def run(args) -> dict:
                                             img_size=img_size,
                                             nl=len(spec.strides)))
 
+    main = shard is None or shard.mesh.is_main
     coco = _save_coco_json(fwd, loader, ds, args, device) \
-        if args.save_coco else None
+        if args.save_coco and main else None
     names = data.get("names", [str(i) for i in range(nc)])
     per_image = None
-    if args.save_txt or args.save_hybrid:
+    if (args.save_txt or args.save_hybrid) and main:
         save_dir = increment_path(Path(args.project) / args.name,
                                   exist_ok=args.exist_ok)
         (save_dir / "labels").mkdir(parents=True, exist_ok=True)
@@ -231,7 +261,7 @@ def run(args) -> dict:
     res = evaluate(fwd, loader, nc=nc, device=device,
                    conf_thres=args.conf_thres, iou_thres=args.iou_thres,
                    single_cls=args.single_cls, hybrid=args.save_hybrid,
-                   per_image=per_image, loss_fn=loss_fn)
+                   per_image=per_image, loss_fn=loss_fn, shard=shard)
     if coco is not None:
         res["coco"] = coco
     if "lamr" in res:
@@ -251,7 +281,7 @@ def run(args) -> dict:
     logger.info(f"speed: {res['t_infer_ms']:.2f} ms infer, "
                 f"{res['t_nms_ms']:.2f} ms NMS, {res['t_match_ms']:.2f} ms "
                 f"matching per image")
-    if args.save_json:
+    if args.save_json and main:
         Path(args.save_json).write_text(json.dumps(
             {k: v for k, v in res.items()
              if isinstance(v, (int, float, dict))},

@@ -20,6 +20,20 @@ its ``last`` (bare: the newest under ``--project`` or ``runs/``).
 runs on the CPU. ``run`` takes the parsed arguments, where ``data`` may
 also be a dict.
 
+``--device-aug`` moves the mosaic, scale/translate warp, flip and HSV
+jitter onto the device (ops/augment_device.py; the host only decodes and
+letterboxes tiles); ``--quad`` trains on 2S canvases of 4 samples with the
+loss x4; ``--evolve N`` runs N generations of hyperparameter evolution
+into ``<project>/<name>_evolve/evolve.txt``.
+
+Parallel (parallel/mesh.py): under ``torchrun --nproc-per-node N`` (or the
+reference's launcher and ``--local_rank``) the N ranks train one model on
+the global batch, split n_data x n_model with ``--n-model`` (tensor
+parallelism of the CFT blocks); NCCL on CUDA (``cuda:LOCAL_RANK``), gloo
+with ``--device cpu``. The batch is rounded up to a multiple of the data
+ranks, BatchNorm is synchronised (``--sync-bn`` is always on), the
+per-epoch eval is split over the data ranks, and only rank 0 writes.
+
 Flags whose modules are not ported yet exit with a message naming the
 ROADMAP item that brings them. Plots and TensorBoard are not ported
 (ROADMAP queue 1, item 7); the run says so once.
@@ -39,21 +53,9 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-_ITEM5 = "ROADMAP queue 1, item 5, its remainder"
-_ITEM6 = "ROADMAP queue 1, item 6"
 _ITEM7 = "ROADMAP queue 1, item 7"
 # flag -> (its default, why it stops here: the ROADMAP item that ports it)
 DEFERRED = {
-    "device_aug": (False, "--device-aug needs ops/augment_device.py and the "
-                          f"device HSV jitter ({_ITEM5})"),
-    "quad": (False, f"--quad needs quad collation ({_ITEM5})"),
-    "evolve": (0, f"--evolve (hyperparameter evolution) is not ported yet "
-                  f"({_ITEM5})"),
-    "n_model": (1, f"--n-model (tensor parallel) comes with the parallel "
-                   f"port ({_ITEM6})"),
-    "sync_bn": (False, f"--sync-bn comes with the parallel port ({_ITEM6})"),
-    "local_rank": (-1, f"--local_rank comes with the parallel port "
-                       f"({_ITEM6})"),
     "wandb": (False, f"--wandb needs utils/loggers.py ({_ITEM7})"),
     "upload_dataset": (False, f"--upload-dataset needs utils/loggers.py "
                               f"({_ITEM7})"),
@@ -134,14 +136,25 @@ def parse_args(argv=None):
     ap.add_argument("--workers", type=int, default=8,
                     help="accepted for compatibility; one thread assembles "
                          "the batches ahead")
-    # flags of modules not ported yet (DEFERRED)
-    ap.add_argument("--device-aug", action="store_true", help="not ported")
-    ap.add_argument("--quad", action="store_true", help="not ported")
+    ap.add_argument("--device-aug", action="store_true",
+                    help="mosaic, scale/translate, flip and HSV on the "
+                         "device (the default hyps' separable warp only); "
+                         "the host decodes and letterboxes tiles")
+    ap.add_argument("--quad", action="store_true",
+                    help="4 samples per 2S canvas, loss x4 (batch rounded "
+                         "to a multiple of 4)")
     ap.add_argument("--evolve", type=int, default=0, metavar="N",
-                    help="not ported")
-    ap.add_argument("--n-model", type=int, default=1, help="not ported")
-    ap.add_argument("--sync-bn", action="store_true", help="not ported")
-    ap.add_argument("--local_rank", type=int, default=-1, help="not ported")
+                    help="evolve the hyperparameters for N generations")
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="tensor-parallel ranks per CFT block (divides the "
+                         "launched ranks and the 8 heads)")
+    ap.add_argument("--sync-bn", action="store_true",
+                    help="accepted: BatchNorm statistics are the global "
+                         "batch's under data parallelism (always on)")
+    ap.add_argument("--local_rank", type=int, default=-1,
+                    help="the reference launcher's rank on this host "
+                         "(torchrun sets LOCAL_RANK instead)")
+    # flags of modules not ported yet (DEFERRED)
     ap.add_argument("--wandb", action="store_true", help="not ported")
     ap.add_argument("--upload-dataset", "--upload_dataset",
                     action="store_true", help="not ported")
@@ -201,6 +214,10 @@ def run(args) -> dict:
     from ..models.fusion import mix_seed
     from ..models.model import build_model, init_weights
     from ..models.parser import parse_model_config
+    from ..ops.augment_device import (device_mosaic_batch, draw_mosaic,
+                                      image_targets, take_rows)
+    from ..parallel import mesh as pm
+    from ..train.eval_forward import make_eval_forward as model_forward
     from ..train.evaluator import evaluate
     from ..train.loss import DetectionLoss, LossHyp, scale_gains
     from ..train.optim import OptHyp, build_optimizer
@@ -215,12 +232,35 @@ def run(args) -> dict:
 
     _check_flags(args)
     device = device_from_arg(args.device)
+    world, device = pm.init_distributed(device, args.local_rank)
+    if args.n_model > 1 and world == 1:
+        raise SystemExit(f"--n-model {args.n_model} needs {args.n_model} "
+                         f"ranks: launch with torchrun --nproc-per-node "
+                         f"{args.n_model}")
+    if world % args.n_model:
+        raise SystemExit(f"--n-model {args.n_model} must divide the "
+                         f"{world} launched ranks")
+    mesh = pm.make_mesh(world // args.n_model, args.n_model) \
+        if world > 1 else None
+    n_data = mesh.n_data if mesh else 1
+    main = mesh is None or mesh.is_main
+    if args.sync_bn:
+        logger.info("--sync-bn: always on, BatchNorm statistics are the "
+                    "global batch's under data parallelism "
+                    "(parallel/mesh.py)")
     init_seeds(args.seed)
-    save_dir = increment_path(Path(args.project) / args.name,
-                              exist_ok=args.exist_ok)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    logger.info(f"run dir: {save_dir} ({device})")
-    if not args.nosave:
+    save_dir = None
+    if main:
+        save_dir = increment_path(Path(args.project) / args.name,
+                                  exist_ok=args.exist_ok)
+        save_dir.mkdir(parents=True, exist_ok=True)
+    if mesh is not None:  # rank 0's run directory
+        box = [save_dir]
+        torch.distributed.broadcast_object_list(box, src=0)
+        save_dir = box[0]
+    logger.info(f"run dir: {save_dir} ({device}"
+                f"{f', {mesh}' if mesh else ''})")
+    if not args.nosave and main:
         logger.info("plots and TensorBoard are not ported yet (ROADMAP "
                     "queue 1, item 7): results.txt and final.json only")
 
@@ -231,17 +271,50 @@ def run(args) -> dict:
              else [args.img_size])
     img_size = check_img_size(sizes[0], 32)
     val_img_size = check_img_size(sizes[-1], 32)
+    # use every data rank: round the batch up (the train step of --quad
+    # sees the canvas batch, a quarter of it)
+    if args.quad:
+        if args.device_aug or args.rect:
+            raise SystemExit("--quad is exclusive with --device-aug/--rect")
+        if args.batch_size % 4:
+            args.batch_size = ((args.batch_size + 3) // 4) * 4
+            logger.warning(f"--quad: batch rounded up to {args.batch_size}")
+        nd, cbs, changed = pm.resolve_data_axis(args.batch_size // 4, world,
+                                                args.n_model)
+        if changed:
+            args.batch_size = cbs * 4
+            logger.warning(f"--quad: canvas batch not divisible by the "
+                           f"{nd}-way data axis; batch rounded up to "
+                           f"{args.batch_size}")
+    else:
+        nd, bs, changed = pm.resolve_data_axis(args.batch_size, world,
+                                               args.n_model)
+        if changed:
+            logger.warning(f"--batch-size {args.batch_size} is not divisible "
+                           f"by the {nd}-way data axis; rounding up to {bs} "
+                           f"so no rank idles")
+            args.batch_size = bs
+    if nd < n_data:
+        raise SystemExit(f"--batch-size {args.batch_size} leaves some of the "
+                         f"{n_data} data ranks without images")
     hyp = load_hyp(args.hyp)
     hyp["label_smoothing"] = args.label_smoothing
-    (save_dir / "hyp.yaml").write_text(dump_flat_yaml(hyp))
-    (save_dir / "opt.yaml").write_text(dump_flat_yaml(_flat(vars(args))))
+    if main:
+        (save_dir / "hyp.yaml").write_text(dump_flat_yaml(hyp))
+        (save_dir / "opt.yaml").write_text(dump_flat_yaml(_flat(vars(args))))
+    if args.device_aug and (hyp.get("degrees", 0) or hyp.get("shear", 0)
+                            or hyp.get("perspective", 0)):
+        raise SystemExit("--device-aug supports the separable (scale/"
+                         "translate) affine only: degrees, shear and "
+                         "perspective must be 0")
+    cache_dir = str(save_dir / "cache") if main else None
 
     # ---- data
     train_ds = PairedDetectionDataset.from_sources(
         data["train_rgb"] if two_stream else data["train"],
         data.get("train_ir"), img_size=img_size, augment=True, hyp=hyp,
         nc=None if args.single_cls else nc, rect=args.rect,
-        cache_dir=str(save_dir / "cache"), cache_images=args.cache_images)
+        cache_dir=cache_dir, cache_images=args.cache_images)
     if args.single_cls:
         for lab in train_ds.labels:
             if len(lab):
@@ -271,7 +344,10 @@ def run(args) -> dict:
 
     loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
                          seed=args.seed, max_labels=args.max_labels,
-                         drop_last=True, image_weights=args.image_weights)
+                         drop_last=True, image_weights=args.image_weights,
+                         device_aug=args.device_aug, quad=args.quad,
+                         max_labels_per_tile=max(args.max_labels // 4, 10),
+                         rank=mesh.data_rank if mesh else 0, world=n_data)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise SystemExit("the training set is smaller than one batch")
@@ -280,8 +356,7 @@ def run(args) -> dict:
         val_ds = PairedDetectionDataset.from_sources(
             data["val_rgb"] if two_stream else data["val"],
             data.get("val_ir"), img_size=val_img_size,
-            nc=None if args.single_cls else nc,
-            cache_dir=str(save_dir / "cache"))
+            nc=None if args.single_cls else nc, cache_dir=cache_dir)
         if args.single_cls:
             for lab in val_ds.labels:
                 if len(lab):
@@ -302,12 +377,24 @@ def run(args) -> dict:
                    label_smoothing=hyp["label_smoothing"])
     lhyp = scale_gains(lhyp, nc=nc, img_size=img_size, nl=len(spec.strides))
     loss_fn = DetectionLoss(nc, anchor_arrays(spec.anchors), spec.strides,
-                            lhyp)
+                            lhyp, loss_mult=4.0 if args.quad else 1.0,
+                            mesh=mesh)
+    # val batches are whole and never quadded: the x1 loss of one process
+    val_loss_fn = loss_fn if mesh is None and not args.quad else \
+        DetectionLoss(nc, anchor_arrays(spec.anchors), spec.strides, lhyp)
 
     if args.weights and not args.resume:
         n_c, n_t = partial_load(model, load_inference_params(args.weights))
         logger.info(f"warm start: {n_c}/{n_t} tensors from {args.weights}")
     model = model.to(device).to(memory_format=torch.channels_last)
+    eval_model = None
+    if mesh is not None:
+        pm.broadcast_module(model)  # rank 0's initial weights everywhere
+        if mesh.n_model > 1:  # the per-epoch eval runs whole
+            eval_model = build_model(cfg, nc=nc, anchors=anchors,
+                                     dtype=dtype).to(device).to(
+                memory_format=torch.channels_last).eval()
+        pm.parallelize(model, mesh)
     opt = build_optimizer(model, ohyp, steps_per_epoch, args.epochs,
                           accumulate, args.batch_size,
                           linear_lr=args.linear_lr,
@@ -316,9 +403,10 @@ def run(args) -> dict:
         n_frozen = sum(p.numel() for n, p in model.named_parameters()
                        if opt.roles[n] == "frozen")
         logger.info(f"--freeze {args.freeze}: {n_frozen:,} params frozen")
-    state = TrainState(model, opt)
+    state = TrainState(model, opt, mesh)
     n_par = sum(p.numel() for p in model.parameters())
-    logger.info(f"model: {len(spec.nodes)} layers, {n_par:,} params, "
+    logger.info(f"model: {len(spec.nodes)} layers, {n_par:,} params"
+                f"{' on this rank' if eval_model is not None else ''}, "
                 f"accumulate={accumulate}")
 
     start_epoch, best_fitness = 0, 0.0
@@ -335,9 +423,15 @@ def run(args) -> dict:
         best_fitness = meta.get("best_fitness", 0.0)
         loader.epoch = start_epoch  # the resumed epoch's shuffle and draws
         logger.info(f"resumed from {args.resume} at epoch {start_epoch}")
+    if mesh is not None:
+        torch.distributed.barrier()
 
     step = make_train_step(state, loss_fn, remat=args.remat)
-    ema_forward = make_eval_forward(state)
+    if eval_model is None:
+        ema_forward = make_eval_forward(state)
+    else:
+        ema_forward = model_forward(eval_model)
+    shard = pm.EvalShard(mesh, args.batch_size) if mesh else None
     eval_forwards = 0
 
     def fwd(rgb, ir):
@@ -350,6 +444,17 @@ def run(args) -> dict:
     if args.multi_scale:
         lo = max(64, (int(img_size * 0.5) // 64) * 64)
         ladder = list(range(lo, (int(img_size * 1.5) // 64) * 64 + 1, 64))
+    aug_gen = torch.Generator().manual_seed(args.seed + 1)  # --device-aug
+    rows = args.batch_size // n_data
+    row0 = (mesh.data_rank if mesh else 0) * rows
+
+    def save(path, epoch, best, writer=None):
+        # under tensor parallelism gathering is collective; rank 0 writes
+        if main or eval_model is not None:
+            sd = state.state_dict()
+            if main:
+                save_checkpoint(path, sd, epoch=epoch, best_fitness=best,
+                                writer=writer)
 
     results_file = save_dir / "results.txt"
     writer = CheckpointWriter()
@@ -360,13 +465,27 @@ def run(args) -> dict:
             agg = torch.zeros(4, device=device)  # loss sums, on the device
             nb = 0
             for batch in loader:
-                rgb = _to_device(batch["rgb"], device)
-                ir = _to_device(batch["ir"], device) if "ir" in batch else rgb
+                if args.device_aug:
+                    draws = take_rows(draw_mosaic(aug_gen, args.batch_size,
+                                                  img_size, hyp),
+                                      row0, row0 + rows)
+                    rgb, ir, tg, tm = device_mosaic_batch(
+                        _to_device(batch["tiles_rgb"], device),
+                        _to_device(batch["tiles_ir"], device),
+                        _to_device(batch["tile_labels"], device),
+                        _to_device(batch["tile_lmask"], device), draws,
+                        img_size)
+                    targets, tmask = image_targets(tg, tm)
+                else:
+                    rgb = _to_device(batch["rgb"], device)
+                    ir = _to_device(batch["ir"], device) if "ir" in batch \
+                        else rgb
+                    targets = _to_device(batch["targets"], device)
+                    tmask = _to_device(batch["tmask"], device)
                 if ladder is not None:
                     sz = ms_rng.choice(ladder)
                     rgb, ir = _resize_u8(rgb, sz), _resize_u8(ir, sz)
-                m = step(rgb, ir, _to_device(batch["targets"], device),
-                         _to_device(batch["tmask"], device),
+                m = step(rgb, ir, targets, tmask,
                          seed=mix_seed(args.seed + 1, state.step))
                 agg += torch.stack([m["box"], m["obj"], m["cls"],
                                     m["total"]])
@@ -378,11 +497,15 @@ def run(args) -> dict:
             fi = 0.0
             if val_loader is not None and (epoch % args.eval_every == 0
                                            or epoch == args.epochs - 1):
+                if eval_model is not None:  # the EMA's shards gathered
+                    eval_model.load_state_dict(pm.gather_state(
+                        state.ema_model.state_dict(), pm.tp_dims(model),
+                        mesh))
                 res = evaluate(fwd, val_loader, nc, device=device,
                                conf_thres=0.001, iou_thres=0.6,
                                single_cls=args.single_cls,
-                               loss_fn=loss_fn if args.compute_val_loss
-                               else None)
+                               loss_fn=val_loss_fn if args.compute_val_loss
+                               else None, shard=shard)
                 fi = fitness(res["mp"], res["mr"], res["map50"], res["map"])
                 line += (f" | P {res['mp']:.3f} R {res['mr']:.3f} "
                          f"mAP50 {res['map50']:.3f} mAP75 "
@@ -392,35 +515,110 @@ def run(args) -> dict:
                              .format(*res["val_loss"]))
                 final = res
             logger.info(line)
-            with open(results_file, "a") as f:
-                f.write(line + "\n")
+            if main:
+                with open(results_file, "a") as f:
+                    f.write(line + "\n")
             if args.nosave:
                 continue
             if epoch % max(args.ckpt_every, 1) == 0 or \
                     epoch == args.epochs - 1:
-                save_checkpoint(save_dir / "last", state, epoch=epoch,
-                                best_fitness=max(best_fitness, fi),
-                                writer=writer)
+                save(save_dir / "last", epoch, max(best_fitness, fi), writer)
             if fi > best_fitness:
                 best_fitness = fi
-                save_checkpoint(save_dir / "best", state, epoch=epoch,
-                                best_fitness=best_fitness, writer=writer)
+                save(save_dir / "best", epoch, best_fitness, writer)
             if args.save_period > 0 and epoch % args.save_period == 0:
-                save_checkpoint(save_dir / f"epoch{epoch}", state,
-                                epoch=epoch, best_fitness=best_fitness)
+                save(save_dir / f"epoch{epoch}", epoch, best_fitness)
+            if mesh is not None:
+                torch.distributed.barrier()
     finally:
         writer.wait()  # background writes land before the strip
-    if not args.nosave:
+    if not args.nosave and main:
         for tag in ("last", "best"):
             if (save_dir / tag / "state.pt").is_file():
                 strip_checkpoint(save_dir / tag)
     out = {k: v for k, v in final.items() if isinstance(v, (int, float))}
     if "val_loss" in final:
         out["val_loss"] = final["val_loss"]
-    (save_dir / "final.json").write_text(json.dumps(out, indent=1))
+    if main:
+        (save_dir / "final.json").write_text(json.dumps(out, indent=1))
+    if mesh is not None:
+        torch.distributed.barrier()
     out["save_dir"] = str(save_dir)
     out["eval_forwards"] = eval_forwards
     return out
+
+
+def evolve(args) -> dict:
+    """Genetic hyperparameter evolution (the reference's train.py
+    --evolve): each generation mutates a parent drawn from the best 5
+    rows of ``evolve.txt`` by fitness (80 % of the keys, sigma 0.2, gains
+    from ``EVOLVE_META``), clips to its bounds, trains a run without
+    checkpoints and appends ``fitness hyp...`` to ``evolve.txt``; the best
+    hyperparameters go to ``hyp_evolved.yaml``. Draws from
+    ``np.random.default_rng(seed)``. Under a launcher every rank evolves
+    alike and rank 0 writes."""
+    from ..data.hyps import EVOLVE_META, dump_flat_yaml, load_hyp
+    from ..parallel import mesh as pm
+    from ..utils.general import device_from_arg
+    from ..utils.metrics import fitness as fitness_fn
+
+    world, _ = pm.init_distributed(device_from_arg(args.device),
+                                   args.local_rank)
+    main = world == 1 or torch.distributed.get_rank() == 0
+    base_dir = Path(args.project) / f"{args.name}_evolve"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    evolve_file = base_dir / "evolve.txt"
+    hyp = load_hyp(args.hyp)
+    rng = np.random.default_rng(args.seed)
+    keys = [k for k in EVOLVE_META if k in hyp]
+
+    best = None
+    for gen in range(args.evolve):
+        if evolve_file.exists() and evolve_file.stat().st_size:
+            rows = np.atleast_2d(np.loadtxt(evolve_file))
+            n = min(5, len(rows))
+            top = rows[np.argsort(-rows[:, 0])][:n]
+            w = top[:, 0] - top[:, 0].min() + 1e-6
+            parent = top[rng.choice(n, p=w / w.sum())]
+            for _ in range(100):  # mutate until some key moves
+                v = np.ones(len(keys))
+                while all(v == 1):
+                    g = np.array([EVOLVE_META[k][0] for k in keys])
+                    v = (g * (rng.random(len(keys)) < 0.8)
+                         * rng.standard_normal(len(keys)) * rng.random()
+                         * 0.2 + 1).clip(0.3, 3.0)
+                if not all(v == 1):
+                    break
+            for i, k in enumerate(keys):
+                hyp[k] = float(parent[i + 1] * v[i])
+        for k in keys:  # clip to the bounds
+            hyp[k] = float(np.clip(hyp[k], EVOLVE_META[k][1],
+                                   EVOLVE_META[k][2]))
+        sub = argparse.Namespace(**vars(args))
+        sub.hyp = dict(hyp)
+        sub.evolve = 0
+        sub.name = f"{args.name}_evolve/gen{gen}"
+        sub.nosave = True
+        sub.exist_ok = True
+        res = run(sub)
+        fi = fitness_fn(res.get("mp", 0), res.get("mr", 0),
+                        res.get("map50", 0), res.get("map", 0))
+        if main:
+            with open(evolve_file, "a") as f:
+                f.write(" ".join([f"{fi:.6f}"]
+                                 + [f"{hyp[k]:.6g}" for k in keys]) + "\n")
+        if world > 1:  # the next generation reads the file
+            torch.distributed.barrier()
+        logger.info(f"evolve gen {gen}: fitness {fi:.4f}")
+        if best is None or fi > best[0]:
+            best = (fi, dict(hyp))
+            if main:
+                (base_dir / "hyp_evolved.yaml").write_text(
+                    dump_flat_yaml(hyp))
+    logger.info("the evolution plot is not ported yet (ROADMAP queue 1, "
+                "item 7): evolve.txt and hyp_evolved.yaml only")
+    return {"best_fitness": best[0] if best else 0.0,
+            "hyp": best[1] if best else hyp}
 
 
 def main(argv=None) -> int:
@@ -433,7 +631,10 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"train_cli: {e}", file=sys.stderr)
         return 1
-    run(args)
+    if args.evolve > 0:
+        evolve(args)
+    else:
+        run(args)
     return 0
 
 

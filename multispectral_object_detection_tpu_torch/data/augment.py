@@ -13,7 +13,11 @@ augment.py:
   ``random_affine_pair`` (one rotate/scale/shear/translate warp for both
   modalities, boxes or polygon segments warped with it, the reference's
   box-candidate filter) and ``mosaic4_pair`` (4 tiles on a 2s canvas, the
-  same placement in both modalities).
+  same placement in both modalities);
+- library augmentations that no training path calls (as in the JAX
+  package): ``mosaic9_pair`` (9 tiles around a centre, a random 2s crop,
+  the shared warp), ``cutout``, ``replicate`` and ``hist_equalize``
+  (CLAHE or a global equalisation of the luma; needs cv2).
 
 Every draw comes from the ``random.Random`` the caller passes, in the JAX
 package's order, so one seed gives one batch. Warps and the HSV tables run
@@ -325,3 +329,149 @@ def mosaic4_pair(load_fn, indices: Sequence[int], img_size: int, hyp: dict,
         scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
         perspective=hyp.get("perspective", 0.0),
         border=(-s // 2, -s // 2), segments=all_segments, rng=rng)
+
+
+def mosaic9_pair(load_fn, indices: Sequence[int], img_size: int, hyp: dict,
+                 rng: Optional[random.Random] = None):
+    """9-tile mosaic with the same placement in both modalities: tiles laid
+    clockwise around the centre image on a 3s canvas, each anchored to the
+    previous one's extent, a random 2s crop, then the shared warp to s.
+    ``load_fn`` and the result as ``mosaic4_pair``."""
+    rng = rng or random
+    s = img_size
+    canvas_rgb = canvas_ir = None
+    all_labels: List[np.ndarray] = []
+    all_segments: List[np.ndarray] = []
+    h0 = w0 = hp = wp = 0
+    for i, idx in enumerate(indices):
+        loaded = load_fn(idx)
+        rgb, ir, labels = loaded[:3]
+        segs = loaded[3] if len(loaded) > 3 else []
+        h, w = rgb.shape[:2]
+        if i == 0:    # centre
+            canvas_rgb = np.full((s * 3, s * 3, 3), PAD_VALUE, dtype=np.uint8)
+            canvas_ir = np.full((s * 3, s * 3, 3), PAD_VALUE, dtype=np.uint8)
+            h0, w0 = h, w
+            c = s, s, s + w, s + h
+        elif i == 1:  # top
+            c = s, s - h, s + w, s
+        elif i == 2:  # top right
+            c = s + wp, s - h, s + wp + w, s
+        elif i == 3:  # right
+            c = s + w0, s, s + w0 + w, s + h
+        elif i == 4:  # bottom right
+            c = s + w0, s + hp, s + w0 + w, s + hp + h
+        elif i == 5:  # bottom
+            c = s + w0 - w, s + h0, s + w0, s + h0 + h
+        elif i == 6:  # bottom left
+            c = s + w0 - wp - w, s + h0, s + w0 - wp, s + h0 + h
+        elif i == 7:  # left
+            c = s - w, s + h0 - h, s, s + h0
+        else:         # top left
+            c = s - w, s + h0 - hp - h, s, s + h0 - hp
+        padx, pady = c[:2]
+        x1, y1, x2, y2 = (max(v, 0) for v in c)
+        canvas_rgb[y1:y2, x1:x2] = \
+            rgb[y1 - pady:, x1 - padx:][:y2 - y1, :x2 - x1]
+        canvas_ir[y1:y2, x1:x2] = \
+            ir[y1 - pady:, x1 - padx:][:y2 - y1, :x2 - x1]
+        if labels.size:
+            lab = labels
+            out = np.empty_like(lab)
+            out[:, 0] = lab[:, 0]
+            out[:, 1] = w * (lab[:, 1] - lab[:, 3] / 2) + padx
+            out[:, 2] = h * (lab[:, 2] - lab[:, 4] / 2) + pady
+            out[:, 3] = w * (lab[:, 1] + lab[:, 3] / 2) + padx
+            out[:, 4] = h * (lab[:, 2] + lab[:, 4] / 2) + pady
+            all_labels.append(out)
+            all_segments.extend(xyn2xy(sg, w, h, padx, pady) for sg in segs)
+        hp, wp = h, w
+    yc = int(rng.uniform(0, s))
+    xc = int(rng.uniform(0, s))
+    canvas_rgb = canvas_rgb[yc:yc + 2 * s, xc:xc + 2 * s]
+    canvas_ir = canvas_ir[yc:yc + 2 * s, xc:xc + 2 * s]
+    labels = (np.concatenate(all_labels, 0) if all_labels
+              else np.zeros((0, 5), dtype=np.float32))
+    if labels.size:
+        labels[:, [1, 3]] -= xc
+        labels[:, [2, 4]] -= yc
+    labels[:, 1:5] = labels[:, 1:5].clip(0, 2 * s)
+    for sg in all_segments:
+        sg[:, 0] -= xc
+        sg[:, 1] -= yc
+        np.clip(sg, 0, 2 * s, out=sg)
+    return random_affine_pair(
+        canvas_rgb, canvas_ir, labels,
+        degrees=hyp.get("degrees", 0.0), translate=hyp.get("translate", 0.1),
+        scale=hyp.get("scale", 0.5), shear=hyp.get("shear", 0.0),
+        perspective=hyp.get("perspective", 0.0),
+        border=(-s // 2, -s // 2), segments=all_segments, rng=rng)
+
+
+def hist_equalize(im: np.ndarray, clahe: bool = True) -> np.ndarray:
+    """Histogram equalisation of an RGB uint8 image's luma (Y of YUV):
+    CLAHE (clip 2, 8x8 tiles) or a global ``equalizeHist``. Needs cv2."""
+    cv2 = _cv2()
+    if cv2 is None:
+        raise ImportError("hist_equalize needs cv2 (opencv-python), which "
+                          "is not installed")
+    yuv = cv2.cvtColor(im, cv2.COLOR_RGB2YUV)
+    if clahe:
+        yuv[:, :, 0] = cv2.createCLAHE(
+            clipLimit=2.0, tileGridSize=(8, 8)).apply(yuv[:, :, 0])
+    else:
+        yuv[:, :, 0] = cv2.equalizeHist(yuv[:, :, 0])
+    return cv2.cvtColor(yuv, cv2.COLOR_YUV2RGB)
+
+
+def _ioa(box: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Intersection of ``box`` (4,) over the area of each of ``boxes``
+    (N, 4), xyxy."""
+    ix = (np.minimum(box[2], boxes[:, 2])
+          - np.maximum(box[0], boxes[:, 0])).clip(0)
+    iy = (np.minimum(box[3], boxes[:, 3])
+          - np.maximum(box[1], boxes[:, 1])).clip(0)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]) + 1e-16
+    return ix * iy / area
+
+
+def cutout(im: np.ndarray, labels: np.ndarray,
+           rng: Optional[random.Random] = None) -> np.ndarray:
+    """Paint random gray patches into ``im`` in place at halving scales;
+    labels (N, 5) [cls, x1, y1, x2, y2] px more than 60 % covered by a
+    patch larger than 3 % are dropped. Returns the surviving labels."""
+    rng = rng or random
+    h, w = im.shape[:2]
+    scales = [0.5] + [0.25] * 2 + [0.125] * 4 + [0.0625] * 8 + [0.03125] * 16
+    for s in scales:
+        mh = rng.randint(1, max(int(h * s), 1))
+        mw = rng.randint(1, max(int(w * s), 1))
+        x1 = max(0, rng.randint(0, w) - mw // 2)
+        y1 = max(0, rng.randint(0, h) - mh // 2)
+        x2, y2 = min(w, x1 + mw), min(h, y1 + mh)
+        im[y1:y2, x1:x2] = [rng.randint(64, 191) for _ in range(3)]
+        if len(labels) and s > 0.03:
+            box = np.asarray([x1, y1, x2, y2], np.float32)
+            labels = labels[_ioa(box, labels[:, 1:5]) < 0.60]
+    return labels
+
+
+def replicate(im: np.ndarray, labels: np.ndarray,
+              rng: Optional[random.Random] = None):
+    """Copy the smaller half of the boxes (by mean side) to random places
+    in ``im`` (in place); labels (N, 5) [cls, x1, y1, x2, y2] px. Returns
+    (im, labels with the copies appended)."""
+    rng = rng or random
+    h, w = im.shape[:2]
+    boxes = labels[:, 1:5].astype(int)
+    side = ((boxes[:, 2] - boxes[:, 0]) + (boxes[:, 3] - boxes[:, 1])) / 2
+    for i in side.argsort()[:round(side.size * 0.5)]:
+        x1b, y1b, x2b, y2b = boxes[i]
+        bh, bw = y2b - y1b, x2b - x1b
+        if bh <= 0 or bw <= 0 or bh >= h or bw >= w:
+            continue
+        yc, xc = int(rng.uniform(0, h - bh)), int(rng.uniform(0, w - bw))
+        im[yc:yc + bh, xc:xc + bw] = im[y1b:y2b, x1b:x2b]
+        labels = np.append(labels, [[labels[i, 0], xc, yc, xc + bw, yc + bh]],
+                           axis=0)
+    return im, labels

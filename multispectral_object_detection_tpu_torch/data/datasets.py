@@ -21,13 +21,17 @@ augmentations' warps and HSV tables; data/augment.py):
   affine warp, HSV jitter per modality and shared flips, all drawn from the
   loader's ``random.Random``; a RAM cache of decoded pairs
   (``cache_images``);
+- ``collate_quad`` (``--quad``): each group of 4 samples becomes one
+  2S canvas, the tiles stitched 2x2 or the first tile upsampled 2x;
+- ``get_tile`` / ``collate_tiles`` (``--device-aug``): 4 letterboxed
+  tiles per sample for ops/augment_device.py, the partners drawn from the
+  loader's generator;
 - ``BatchLoader``: batches assembled one ahead on a thread; for training
   shuffled per epoch by ``np.random.default_rng(seed + epoch)``, or drawn
   by class-frequency image weights, with the augmentations' generator
-  ``random.Random(seed * 1000003 + epoch)``.
-
-Quad collation and the device-side augmentation batches are not ported
-(ROADMAP queue 1, item 5's remainder).
+  ``random.Random(seed * 1000003 + epoch)``. Under data parallelism every
+  rank draws the same global order and assembles its own rows of each
+  batch, its generator offset by the rank.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import native
 from .augment import (augment_hsv, letterbox, load_scaled, load_scaled_pair,
                       mosaic4_pair, random_affine_pair)
 from .imageio import PNG_SIGNATURE, png_size
@@ -367,6 +372,25 @@ class PairedDetectionDataset:
         rgb, ir, _ = self._load_pair(i)
         return rgb, ir, self.labels[i], self.segments[i]
 
+    def get_tile(self, i: int):
+        """A tile of the device-side augmentation: the pair letterboxed to
+        s x s (scaled up if smaller), labels renormalised to the tile; no
+        random draws."""
+        s = self.img_size
+        rgb0, ir0, _ = self._load_pair(i)
+        lab = self.labels[i]
+        h, w = rgb0.shape[:2]
+        rgb, ratio, padwh = letterbox(rgb0, (s, s), scaleup=True)
+        ir, _, _ = letterbox(ir0, (s, s), scaleup=True)
+        out = np.zeros_like(lab)
+        if len(lab):
+            out[:, 0] = lab[:, 0]
+            out[:, 1] = (ratio[0] * w * lab[:, 1] + padwh[0]) / s
+            out[:, 2] = (ratio[1] * h * lab[:, 2] + padwh[1]) / s
+            out[:, 3] = ratio[0] * w * lab[:, 3] / s
+            out[:, 4] = ratio[1] * h * lab[:, 4] / s
+        return np.ascontiguousarray(rgb), np.ascontiguousarray(ir), out
+
     def get(self, i: int, rng: Optional[random.Random] = None):
         if self.augment:
             return self._get_augmented(i, rng or random.Random())
@@ -494,6 +518,91 @@ def collate_batch(samples, indices, max_labels: int = 120) -> dict:
     return out
 
 
+def collate_quad(samples, indices, max_labels: int = 120,
+                 rng: Optional[random.Random] = None) -> dict:
+    """``--quad`` batches (the reference's collate_fn4): each group of 4
+    samples becomes one image on a 2S canvas, with probability 0.5 the
+    first sample upsampled 2x (INTER_LINEAR, the C++ runtime), else the
+    four stitched 2x2: sample i top-left, i+1 bottom-left, i+2 top-right,
+    i+3 bottom-right, labels halved. (B/4, 2S, 2S, 3) images, targets
+    (B/4 * 4 * max_labels, 6); the trainer scales the loss by 4."""
+    if len(samples) % 4:
+        raise ValueError("--quad needs a batch divisible by 4")
+    rng = rng or random.Random(0)
+    s = samples[0][0].shape[0]
+    two = samples[0][1] is not None
+    ml4 = 4 * max_labels
+    rgbs, irs, ts, ms, shapes = [], [], [], [], []
+    offs = ((0.0, 0.0), (0.0, 1.0), (1.0, 0.0), (1.0, 1.0))  # (x, y) offset
+    for g in range(len(samples) // 4):
+        group = samples[g * 4:(g + 1) * 4]
+        labs = []
+        if rng.random() < 0.5:
+            rgb = native.resize(group[0][0], 2 * s, 2 * s)
+            ir = native.resize(group[0][1], 2 * s, 2 * s) if two else None
+            if len(group[0][2]):
+                labs.append(group[0][2])  # normalised: scale-free
+        else:
+            rgb = np.zeros((2 * s, 2 * s, 3), np.uint8)
+            ir = np.zeros((2 * s, 2 * s, 3), np.uint8) if two else None
+            for (xo, yo), (r, q, lab, _) in zip(offs, group):
+                y0, x0 = int(yo * s), int(xo * s)
+                rgb[y0:y0 + s, x0:x0 + s] = r
+                if two:
+                    ir[y0:y0 + s, x0:x0 + s] = q
+                if len(lab):
+                    lab = lab.copy()
+                    lab[:, 1] = (lab[:, 1] + xo) * 0.5
+                    lab[:, 2] = (lab[:, 2] + yo) * 0.5
+                    lab[:, 3:5] *= 0.5
+                    labs.append(lab)
+        labels = np.concatenate(labs, 0) if labs else \
+            np.zeros((0, 5), np.float32)
+        t = np.zeros((ml4, 6), dtype=np.float32)
+        m = np.zeros((ml4,), dtype=np.float32)
+        n = min(len(labels), ml4)
+        if n:
+            t[:n, 0] = g
+            t[:n, 1:] = labels[:n]
+            m[:n] = 1.0
+        rgbs.append(rgb)
+        if two:
+            irs.append(ir)
+        ts.append(t)
+        ms.append(m)
+        shapes.append(group[0][3])
+    out = {"rgb": np.stack(rgbs), "targets": np.concatenate(ts, 0),
+           "tmask": np.concatenate(ms, 0), "shapes": shapes,
+           "index": np.asarray(indices, np.int64)[::4]}
+    if irs:
+        out["ir"] = np.stack(irs)
+    return out
+
+
+def collate_tiles(ds: PairedDetectionDataset, batch_idx, rng: random.Random,
+                  max_labels_per_tile: int = 40) -> dict:
+    """A ``--device-aug`` batch: per sample its own tile and 3 partners
+    drawn from ``rng`` (as the mosaic draws them), letterboxed:
+    ``tiles_rgb``/``tiles_ir`` (B, 4, s, s, 3) uint8, ``tile_labels``
+    (B, 4, M, 5) and ``tile_lmask`` (B, 4, M), M = max_labels_per_tile."""
+    B, s, M = len(batch_idx), ds.img_size, max_labels_per_tile
+    rgb = np.zeros((B, 4, s, s, 3), np.uint8)
+    ir = np.zeros((B, 4, s, s, 3), np.uint8)
+    labels = np.zeros((B, 4, M, 5), np.float32)
+    lmask = np.zeros((B, 4, M), np.float32)
+    for bi, i in enumerate(batch_idx):
+        idxs = [int(i)] + [rng.randint(0, len(ds) - 1) for _ in range(3)]
+        for ti, j in enumerate(idxs):
+            r, q, lab = ds.get_tile(j)
+            rgb[bi, ti] = r
+            ir[bi, ti] = q
+            n = min(len(lab), M)
+            labels[bi, ti, :n] = lab[:n]
+            lmask[bi, ti, :n] = 1.0
+    return {"tiles_rgb": rgb, "tiles_ir": ir, "tile_labels": labels,
+            "tile_lmask": lmask, "index": np.asarray(batch_idx, np.int64)}
+
+
 class BatchLoader:
     """The batches of one epoch, each assembled while the previous one is
     consumed.
@@ -504,14 +613,32 @@ class BatchLoader:
     with replacement by class-frequency weights instead; ``drop_last``
     drops a short last batch. Augmented samples draw from
     ``random.Random(seed * 1000003 + epoch)``. ``epoch`` counts the
-    completed passes (a resumed run sets it)."""
+    completed passes (a resumed run sets it).
+
+    ``device_aug`` yields ``collate_tiles`` batches, ``quad``
+    ``collate_quad`` batches (exclusive). With ``rank``/``world`` (the
+    data-parallel grid) ``batch_size`` is the global batch: every rank
+    draws the same order and assembles rows [rank * b, (rank + 1) * b) of
+    each batch, b = batch_size / world, its generator's seed offset by
+    ``rank << 32`` (rank 0 draws as one process does)."""
 
     def __init__(self, dataset: PairedDetectionDataset, batch_size: int, *,
                  max_labels: int = 120, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, image_weights: bool = False,
-                 class_weights=None):
+                 class_weights=None, device_aug: bool = False,
+                 max_labels_per_tile: int = 40, quad: bool = False,
+                 rank: int = 0, world: int = 1):
+        if quad and device_aug:
+            raise ValueError("--quad and --device-aug are exclusive")
+        if batch_size % world or (quad and (batch_size // world) % 4):
+            raise ValueError(f"batch {batch_size} does not split into "
+                             f"{world} ranks{' of multiples of 4' if quad else ''}")
         self.ds = dataset
         self.bs = batch_size
+        self.device_aug = device_aug
+        self.max_labels_per_tile = max_labels_per_tile
+        self.quad = quad
+        self.rank, self.world = rank, world
         self.max_labels = max_labels
         self.shuffle = shuffle
         self.seed = seed
@@ -548,15 +675,24 @@ class BatchLoader:
 
     def _batches(self):
         idx = self._indices()
-        return [idx[k * self.bs:(k + 1) * self.bs] for k in range(len(self))]
+        b = self.bs // self.world
+        return [idx[k * self.bs:(k + 1) * self.bs][self.rank * b:
+                                                   (self.rank + 1) * b]
+                for k in range(len(self))]
 
     def _assemble(self, batch_idx, rng: random.Random) -> dict:
-        return collate_batch([self.ds.get(int(i), rng) for i in batch_idx],
-                             batch_idx, self.max_labels)
+        if self.device_aug:
+            return collate_tiles(self.ds, batch_idx, rng,
+                                 self.max_labels_per_tile)
+        samples = [self.ds.get(int(i), rng) for i in batch_idx]
+        if self.quad:
+            return collate_quad(samples, batch_idx, self.max_labels, rng)
+        return collate_batch(samples, batch_idx, self.max_labels)
 
     def __iter__(self):
         batches = self._batches()
-        rng = random.Random(self.seed * 1000003 + self.epoch)
+        rng = random.Random(self.seed * 1000003 + self.epoch
+                            + (self.rank << 32))
         q: "queue.Queue" = queue.Queue(maxsize=2)
         stop = threading.Event()
 

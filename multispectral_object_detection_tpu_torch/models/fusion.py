@@ -21,6 +21,12 @@ probabilities and on both residual branches, as the JAX module trains. The
 masks come from the ``seed`` that the forward is given: one generator per
 (layer, slot), so a recomputed forward (``torch.utils.checkpoint``) draws
 the same masks. A packed module does not train.
+
+On a parallel mesh (``mesh``, set by parallel/mesh.parallelize) each rank
+draws the masks of the global batch and keeps its rows, so N ranks train
+as one process; with tensor parallelism its ``trans_blocks`` hold this
+rank's heads and MLP columns, and the stack sums the split products over
+the model group.
 """
 
 from __future__ import annotations
@@ -48,12 +54,18 @@ def mix_seed(*values: int) -> int:
     return h >> 1
 
 
-def dropout_mask(y: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+def dropout_mask(y: torch.Tensor, p: float, seed: int, full_shape=None,
+                 part=()) -> torch.Tensor:
     """y with dropout at rate p: kept values scaled by 1/(1-p), the mask
-    drawn from a generator seeded with ``seed`` on y's device."""
+    drawn from a generator seeded with ``seed`` on y's device. A rank of a
+    parallel step draws the mask of the whole tensor, ``full_shape``, and
+    keeps ``part`` (a tuple of slices: its rows, its heads)."""
     g = torch.Generator(device=y.device)
     g.manual_seed(seed)
-    keep = torch.rand(y.shape, generator=g, device=y.device) < 1.0 - p
+    keep = torch.rand(full_shape or y.shape, generator=g,
+                      device=y.device) < 1.0 - p
+    if part:
+        keep = keep[part]
     return torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
 
 
@@ -123,6 +135,7 @@ class CrossModalFusion(nn.Module):
         self.ln_f = nn.LayerNorm(d_model)
         # the stack implementation; a caller may swap in its plain twin
         self.stack_fn = fused_cft_stack
+        self.mesh = None  # parallel/mesh.Mesh of a parallel train step
 
     @property
     def packed(self) -> bool:
@@ -179,14 +192,34 @@ class CrossModalFusion(nn.Module):
             raise RuntimeError("a packed (fused) CFT stage cannot train: "
                                "build the model unfused")
         rates = (self.attn_drop, self.resid_drop, self.resid_drop)
+        mesh = self.mesh
+        b = x.shape[0]
+        rows, full, heads, tp = (), {}, (), None
+        if mesh is not None and mesh.world > 1:
+            from ..parallel.mesh import copy_to_model, reduce_from_model
+
+            n, r = b * mesh.n_data, mesh.data_rank
+            rows = (slice(r * b, (r + 1) * b),)
+            h = self.num_heads // mesh.n_model
+            heads = (slice(mesh.model_rank * h, (mesh.model_rank + 1) * h),)
+            full = {0: (n, self.num_heads) + (x.shape[1],) * 2,
+                    1: (n,) + x.shape[1:], 2: (n,) + x.shape[1:]}
+            if mesh.n_model > 1:
+                g = mesh.model_group
+                tp = (lambda t: copy_to_model(t, g),
+                      lambda t: reduce_from_model(t, g))
 
         def drop(t, layer: int, slot: int):
             p = rates[slot]
-            return t if p <= 0 else dropout_mask(
-                t, p, mix_seed(seed, 1 + layer * 3 + slot))
+            if p <= 0:
+                return t
+            return dropout_mask(t, p, mix_seed(seed, 1 + layer * 3 + slot),
+                                full.get(slot),
+                                rows + heads if slot == 0 else rows)
 
         if self.embd_drop > 0:
-            x = dropout_mask(x, self.embd_drop, mix_seed(seed, 0))
+            x = dropout_mask(x, self.embd_drop, mix_seed(seed, 0),
+                             full.get(1), rows)
         w = _stack_layers(self.trans_blocks)
         return cft_stack_train(x, *(w[k] for k in _STACKED),
-                               num_heads=self.num_heads, dropout=drop)
+                               num_heads=self.num_heads, dropout=drop, tp=tp)

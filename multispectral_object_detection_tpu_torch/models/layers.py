@@ -18,7 +18,14 @@ and updates ``ra = 0.97 ra + 0.03 batch`` with the biased variance, as flax
 ``nn.BatchNorm`` does (``F.batch_norm`` would update with the unbiased one).
 Inside ``frozen_batch_stats()`` the update is skipped: the forward that
 ``torch.utils.checkpoint`` recomputes in the backward pass runs there, so a
-step updates the statistics once.
+step updates the statistics once. Under data parallelism (a ConvBnAct's
+``mesh`` with more than one data rank, set by parallel/mesh.parallelize)
+the statistics
+are the global batch's, all-reduced in fp32 forward and backward: the
+mean from the summed sums and counts, then the biased variance from the
+summed squared deviations (two passes, as one process computes it; flax's
+E[x^2] - E[x]^2 rounds differently), and every rank updates its running
+statistics alike.
 """
 
 from __future__ import annotations
@@ -70,6 +77,34 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return out
 
 
+def batch_norm_sync(y: torch.Tensor, bn: nn.BatchNorm2d,
+                    group) -> torch.Tensor:
+    """``batch_norm_train`` with the statistics of the batch over every rank
+    of ``group``, in two passes as ``batch_norm_train`` computes them: the
+    per-channel sums and count all-reduced in fp32 give the mean, then
+    the all-reduced sum of squared deviations from it the biased variance;
+    both all-reduces are differentiated through (their backward
+    all-reduces the gradient)."""
+    from ..parallel.mesh import all_reduce_autograd
+
+    yf = y.float()
+    c = y.shape[1]
+    count = yf.new_full((1,), yf.numel() // c)
+    s = all_reduce_autograd(torch.cat([yf.sum((0, 2, 3)), count]), group)
+    n = s[-1]
+    mean = s[:c] / n
+    dev = yf - mean[:, None, None]
+    var = all_reduce_autograd((dev * dev).sum((0, 2, 3)), group) / n
+    out = dev * (torch.rsqrt(var + bn.eps) * bn.weight)[:, None, None] \
+        + bn.bias[:, None, None]
+    if not getattr(_bn_state, "frozen", False):
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    return out.to(y.dtype)
+
+
 class ConvBnAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU: the reference `Conv`."""
 
@@ -80,6 +115,7 @@ class ConvBnAct(nn.Module):
                               bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = act
+        self.mesh = None  # parallel/mesh.Mesh: SyncBN over its data group
 
     def forward(self, x):
         c = self.conv
@@ -87,7 +123,10 @@ class ConvBnAct(nn.Module):
                      None if c.bias is None else c.bias.to(x.dtype),
                      c.stride, c.padding, c.dilation, c.groups)
         if self.bn is not None and self.training:
-            y = batch_norm_train(y, self.bn)
+            mesh = self.mesh
+            y = batch_norm_train(y, self.bn) if mesh is None or \
+                mesh.n_data == 1 else batch_norm_sync(y, self.bn,
+                                                      mesh.data_group)
         elif self.bn is not None:
             bn = self.bn
             y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,

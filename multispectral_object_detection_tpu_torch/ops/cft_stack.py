@@ -265,7 +265,7 @@ def fused_cft_stack_plain(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
 
 
 def cft_stack_train(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
-                    num_heads: int = 8, dropout=None):
+                    num_heads: int = 8, dropout=None, tp=None):
     """The stack for training: differentiable and out of place, step for
     step the JAX package's ``_scan_stack``. Arguments as ``fused_cft_stack``
     (weights in any float dtype, cast to x's at use). Per layer:
@@ -278,27 +278,43 @@ def cft_stack_train(x, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln1, ln2, *,
 
     so the residual stream stays in x's dtype (K1 keeps it in fp32).
     ``dropout(t, layer, slot)`` returns t with dropout applied; None for
-    none."""
+    none. Tensor parallel: ``tp`` = (enter, reduce), the weights this
+    rank's shards (wqkv (L, C, 3C/n) of whole heads, wp (L, C/n, C), w1
+    (L, C, 4C/n), w2 (L, 4C/n, C)); ``enter`` wraps the LayerNorm outputs
+    that feed the split products, ``reduce`` sums the row-split products
+    before their biases."""
     B, N, C = x.shape
     dt = x.dtype
     d = C // num_heads
+    heads = wqkv.shape[-1] // (3 * d)  # this rank's heads
+    enter, reduce = tp if tp is not None else (None, None)
     for i in range(wqkv.shape[0]):
         h = layer_norm_plain(x.float(), ln1[i, 0], ln1[i, 1], dt)
-        qkv = (h @ wqkv[i].to(dt) + bqkv[i].to(dt)).view(B, N, 3, num_heads,
-                                                          d)
+        if enter is not None:
+            h = enter(h)
+        qkv = (h @ wqkv[i].to(dt) + bqkv[i].to(dt)).view(B, N, 3, heads, d)
         q, k, v = qkv.unbind(2)
         logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
         att = torch.softmax(logits / math.sqrt(d), dim=-1)
         if dropout is not None:
             att = dropout(att, i, 0)
-        a = torch.einsum("bhnm,bmhd->bnhd", att.to(dt), v).reshape(B, N, C)
-        a = a @ wp[i].to(dt) + bp[i].to(dt)
+        a = torch.einsum("bhnm,bmhd->bnhd", att.to(dt), v).reshape(
+            B, N, heads * d)
+        a = a @ wp[i].to(dt)
+        if reduce is not None:
+            a = reduce(a)
+        a = a + bp[i].to(dt)
         if dropout is not None:
             a = dropout(a, i, 1)
         x = x + a
         h = layer_norm_plain(x.float(), ln2[i, 0], ln2[i, 1], dt)
+        if enter is not None:
+            h = enter(h)
         t = F.gelu(h @ w1[i].to(dt) + b1[i].to(dt))
-        t = t @ w2[i].to(dt) + b2[i].to(dt)
+        t = t @ w2[i].to(dt)
+        if reduce is not None:
+            t = reduce(t)
+        t = t + b2[i].to(dt)
         if dropout is not None:
             t = dropout(t, i, 2)
         x = x + t

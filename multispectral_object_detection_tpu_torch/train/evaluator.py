@@ -7,6 +7,12 @@ image pixels, greedy TP matching at 10 IoU thresholds and the
 ``summarize_stats`` summary (host numpy), the log-average miss rate when
 nc = 1, and with a ``loss_fn`` the mean box/obj/cls loss over the batches
 (summed on the device, read once at the end).
+
+Data-parallel (``shard``, a parallel/mesh.EvalShard): every rank reads the
+whole batch, runs its rows of it (padded to the batch size) through the
+forward and NMS, and the detections (and, for the loss, the raw outputs)
+are gathered in batch order; rank 0 matches and summarises, and every
+rank returns its result.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
              single_cls: bool = False, max_det: int = 300,
              top_k: int = 30000, hybrid: bool = False,
              per_image: Callable = None,
-             confusion=None, loss_fn: Callable = None) -> Dict[str, object]:
+             confusion=None, loss_fn: Callable = None,
+             shard=None) -> Dict[str, object]:
     """Run the eval protocol; returns the ``summarize_stats`` dict plus
     ``seen``, ``lamr`` (nc = 1) and the per-image times ``t_infer_ms``
     (upload + forward + decode), ``t_nms_ms`` and ``t_match_ms`` (host
@@ -51,7 +58,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         to be in dataset order).
     confusion: a metrics.ConfusionMatrix accumulated over all images.
     loss_fn: train/loss.DetectionLoss on the forward's raw outputs; adds
-        ``val_loss`` [box, obj, cls], the mean over batches."""
+        ``val_loss`` [box, obj, cls], the mean over batches.
+    shard: parallel/mesh.EvalShard of a data-parallel eval."""
     device = torch.device(device)
     stats = []
     t_infer = t_nms = t_match = 0.0
@@ -65,7 +73,11 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         rgb = torch.from_numpy(rgb_np).to(device)
         ir = torch.from_numpy(batch["ir"]).to(device) if "ir" in batch \
             else rgb
+        if shard is not None:
+            rgb, ir = shard.rows(rgb), shard.rows(ir)
         dets_flat, feats = forward(rgb, ir)
+        if shard is not None and loss_fn is not None:
+            feats = [shard.gather(f, B) for f in feats]
         _sync(device)
         t1 = time.perf_counter()
         targets, tmask = batch["targets"], batch["tmask"]
@@ -85,15 +97,22 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
             labels = torch.from_numpy(np.concatenate([tg[..., 1:2], xywh_px],
                                                      -1)).to(device)
             lmask = torch.from_numpy(tmask.reshape(B, -1)).to(device)
+            if shard is not None:
+                labels, lmask = shard.rows(labels), shard.rows(lmask)
         det = batched_nms(dets_flat, conf_thres=conf_thres,
                           iou_thres=iou_thres, multi_label=not single_cls,
                           agnostic=single_cls, max_det=max_det, top_k=top_k,
                           labels=labels, labels_mask=lmask, stats=nms_stats)
+        if shard is not None:
+            det = [shard.gather(t, B) for t in det]
         boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
         index = batch.get("index")
         t2 = time.perf_counter()
         t_infer += t1 - t0
         t_nms += t2 - t1
+        if shard is not None and not shard.mesh.is_main:
+            seen += B
+            continue  # rank 0 matches
 
         for si in range(B):
             seen += 1
@@ -142,4 +161,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
     out["nms_iterations"] = nms_stats["iterations"] / max(len(loader), 1)
     if n_loss:
         out["val_loss"] = (loss_sum / n_loss).tolist()
+    if shard is not None:  # rank 0's metrics on every rank
+        box = [out]
+        torch.distributed.broadcast_object_list(box, src=0)
+        out = box[0]
     return out

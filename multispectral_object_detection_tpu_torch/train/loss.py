@@ -8,8 +8,13 @@ head outputs in fp32, over the fixed-shape candidates of train/assigner.py:
   (gr = 1) as target, a scatter-max over candidates that share a cell (the
   reference keeps the last write), balanced (4, 1, 0.4) over P3-P5;
 - cls: BCE with optional label smoothing, only when nc > 1;
-- total = (box*gain + obj*gain + cls*gain) * batch (the JAX package's
-  ``loss_mult`` is 4 only under ``--quad``, which the port defers).
+- total = (box*gain + obj*gain + cls*gain) * batch * loss_mult
+  (``loss_mult`` 4 under ``--quad``, whose canvas batch is 4x smaller).
+
+On a data-parallel mesh (``mesh`` with more than one data rank) the means'
+denominators (valid candidates per scale, cells) are the global batch's,
+all-reduced before the division, and the batch is the global one: the
+ranks' losses then sum to the loss of the global batch (parallel/mesh.py).
 
 ``fl_gamma > 0`` scales the BCE terms by the focal (or, with ``qfl``, the
 quality focal) factor. Nothing here reads a value back to the host, and
@@ -101,8 +106,11 @@ class DetectionLoss:
     BALANCE5 = (4.0, 1.0, 0.25, 0.06, 0.02)
 
     def __init__(self, nc: int, anchors_px: np.ndarray,
-                 strides: Sequence[int], hyp: LossHyp = LossHyp()):
+                 strides: Sequence[int], hyp: LossHyp = LossHyp(),
+                 loss_mult: float = 1.0, mesh=None):
         self.nc = nc
+        self.loss_mult = loss_mult
+        self.mesh = mesh
         self.strides = tuple(strides)
         self.anchors_grid = np.asarray(anchors_px, np.float32) / np.asarray(
             strides, np.float32).reshape(-1, 1, 1)
@@ -132,6 +140,13 @@ class DetectionLoss:
         scale = None
         if h.fl_gamma > 0:
             scale = qfocal_scale if h.qfl else focal_scale
+        dp = self.mesh is not None and self.mesh.n_data > 1
+        n_img = B  # the batch the loss is the mean over
+        if dp:  # the global batch's denominators, one all-reduce
+            from ..parallel.mesh import all_reduce_
+            den = all_reduce_(torch.stack([a.mask.sum() for a in assigns]),
+                              self.mesh.data_group).clamp(min=1.0)
+            n_img = B * self.mesh.n_data
         lbox = lobj = lcls = torch.zeros((), device=dev)
         for i, (f, asg) in enumerate(zip(feats, assigns)):
             f = f.float()
@@ -144,7 +159,8 @@ class DetectionLoss:
             ciou = box_iou_elementwise(torch.cat([pxy, pwh], -1),
                                        torch.cat([asg.txy, asg.twh], -1),
                                        xyxy=False, kind="ciou")
-            lbox = lbox + _masked_mean(1.0 - ciou, asg.mask)
+            lbox = lbox + ((((1.0 - ciou) * asg.mask).sum() / den[i]) if dp
+                           else _masked_mean(1.0 - ciou, asg.mask))
 
             # objectness targets: scatter-max of the detached, clamped CIoU
             val = ((1.0 - h.gr) + h.gr * ciou.detach().clamp(min=0.0)) \
@@ -155,7 +171,8 @@ class DetectionLoss:
             obj_losses = _bce_logits(f[..., 4], tobj, h.obj_pw)
             if scale is not None:
                 obj_losses = obj_losses * scale(f[..., 4], tobj, h.fl_gamma)
-            lobj = lobj + obj_losses.mean() * self.balance[i]
+            lobj = lobj + (obj_losses.sum() / (n_img * ny * nx * na) if dp
+                           else obj_losses.mean()) * self.balance[i]
 
             if self.nc > 1:
                 t_cls = self.cn + (self.cp - self.cn) * F.one_hot(
@@ -164,10 +181,12 @@ class DetectionLoss:
                 if scale is not None:
                     cls_losses = cls_losses * scale(ps[:, 5:], t_cls,
                                                     h.fl_gamma)
-                lcls = lcls + _masked_mean(cls_losses.mean(-1), asg.mask)
+                lcls = lcls + ((cls_losses.mean(-1) * asg.mask).sum() / den[i]
+                               if dp else _masked_mean(cls_losses.mean(-1),
+                                                       asg.mask))
 
         lbox = lbox * h.box
         lobj = lobj * h.obj
         lcls = lcls * h.cls
-        total = (lbox + lobj + lcls) * B
+        total = (lbox + lobj + lcls) * n_img * self.loss_mult
         return total, {"box": lbox, "obj": lobj, "cls": lcls, "total": total}

@@ -22,6 +22,13 @@ The step reads nothing back to the host: its metrics are device tensors.
   outputs of convolutions and matmuls and recomputes the rest.
 
 Under every mode BatchNorm's running statistics are updated once per step.
+
+On a parallel mesh (``TrainState(..., mesh)``, parallel/mesh.py) the step
+sums the gradients over the data group in coalesced buckets (the loss is
+already the rank's share of the global batch's), reports the global
+losses and the norm of the reduced gradient, and keeps optimizer and EMA
+replicated; under tensor parallelism ``state_dict`` gathers the CFT
+shards into the full layout and ``load_state_dict`` cuts them again.
 """
 
 from __future__ import annotations
@@ -67,20 +74,57 @@ class TrainState:
     the optimizer, and the counters ``step`` (micro-batches taken) and
     ``ema_updates`` (emitted steps)."""
 
-    def __init__(self, model: nn.Module, opt: YoloOptimizer):
+    def __init__(self, model: nn.Module, opt: YoloOptimizer, mesh=None):
         self.model = model
         self.opt = opt
+        self.mesh = mesh
         self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
         self.step = 0
         self.ema_updates = 0
 
+    def _tp(self):
+        """(the split parameters' dims, the mesh) under tensor
+        parallelism, else None."""
+        if self.mesh is None or self.mesh.n_model == 1:
+            return None
+        from ..parallel.mesh import tp_dims
+
+        return tp_dims(self.model), self.mesh
+
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "ema": self.ema_model.state_dict(),
-                "opt": self.opt.state_dict(), "step": self.step,
-                "ema_updates": self.ema_updates}
+        """The full layout (under tensor parallelism a collective over the
+        model group: every rank of it calls)."""
+        sd = {"model": self.model.state_dict(),
+              "ema": self.ema_model.state_dict(),
+              "opt": self.opt.state_dict(), "step": self.step,
+              "ema_updates": self.ema_updates}
+        tp = self._tp()
+        if tp is not None:
+            from ..parallel.mesh import gather_state
+
+            dims, mesh = tp
+            sd["model"] = gather_state(sd["model"], dims, mesh)
+            sd["ema"] = gather_state(sd["ema"], dims, mesh)
+            names = sd["opt"]["names"]
+            for k, v in sd["opt"].items():
+                if isinstance(v, list) and v and torch.is_tensor(v[0]):
+                    sd["opt"][k] = list(gather_state(dict(zip(names, v)),
+                                                     dims, mesh).values())
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
+        tp = self._tp()
+        if tp is not None:
+            from ..parallel.mesh import shard_state
+
+            dims, mesh = tp
+            sd = dict(sd, model=shard_state(sd["model"], dims, mesh),
+                      ema=shard_state(sd["ema"], dims, mesh))
+            names = sd["opt"]["names"]
+            sd["opt"] = {k: list(shard_state(dict(zip(names, v)), dims,
+                                             mesh).values())
+                         if isinstance(v, list) and v and torch.is_tensor(v[0])
+                         else v for k, v in sd["opt"].items()}
         self.model.load_state_dict(sd["model"])
         self.ema_model.load_state_dict(sd["ema"])
         self.opt.load_state_dict(sd["opt"])
@@ -97,8 +141,13 @@ def make_train_step(state: TrainState, loss_fn,
     gradients), 0-d device tensors."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
-    model, opt = state.model, state.opt
+    model, opt, mesh = state.model, state.opt, state.mesh
     model.remat_blocks = remat == "blocks"
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_, reduce_gradients, tp_dims
+
+        split = set(tp_dims(model)) if mesh.n_model > 1 else set()
+        is_split = [n in split for n in opt.names]
     context_fn = _dots_context if remat == "dots" else None
 
     def forward(*xs, seed: int):
@@ -116,9 +165,21 @@ def make_train_step(state: TrainState, loss_fn,
         grads = torch.autograd.grad(total, opt.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(opt.params, grads)]
+        if mesh is not None:  # the global batch's gradient and losses
+            reduce_gradients(grads, mesh.data_group)
+            comps = dict(zip(comps, all_reduce_(
+                torch.stack([v.detach() for v in comps.values()]),
+                mesh.data_group)))
         with torch.no_grad():
-            gnorm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
+            norms = torch.stack(torch._foreach_norm(grads))
+            if mesh is not None and split:
+                # the split tensors' squares summed over the model group
+                sq = norms.square()
+                part = sq[torch.tensor(is_split, device=sq.device)].sum()
+                rest = sq[~torch.tensor(is_split, device=sq.device)].sum()
+                gnorm = (rest + all_reduce_(part, mesh.model_group)).sqrt()
+            else:
+                gnorm = torch.linalg.vector_norm(norms)
         if opt.update(grads):
             state.ema_updates += 1
             ema_update(state.ema_model, model, state.ema_updates)

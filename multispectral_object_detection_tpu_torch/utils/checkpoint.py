@@ -255,10 +255,11 @@ class CheckpointWriter:
 def save_checkpoint(path, state, *, epoch: int, best_fitness: float,
                     meta: Optional[Dict[str, Any]] = None,
                     writer: Optional[CheckpointWriter] = None) -> None:
-    """Write ``state`` (a train/trainer.TrainState) to the directory
-    ``path``. The copy to host memory happens now; with ``writer`` the
-    serialisation and the disk write run on its thread."""
-    host_state = _to_cpu(state.state_dict())
+    """Write ``state`` (a train/trainer.TrainState, or its state dict) to
+    the directory ``path``. The copy to host memory happens now; with
+    ``writer`` the serialisation and the disk write run on its thread."""
+    host_state = _to_cpu(state if isinstance(state, dict)
+                         else state.state_dict())
     info = {"epoch": int(epoch), "best_fitness": float(best_fitness)}
     info.update(meta or {})
     if writer is None:

@@ -23,7 +23,7 @@ import yaml
 from multispectral_object_detection_tpu.cli.test_cli import main as jax_main
 from multispectral_object_detection_tpu.ops import ds_fusion as jds
 from multispectral_object_detection_tpu_torch import hub
-from multispectral_object_detection_tpu_torch.cli import test_cli, train_cli
+from multispectral_object_detection_tpu_torch.cli import test_cli
 from multispectral_object_detection_tpu_torch.data.imageio import write_png
 from multispectral_object_detection_tpu_torch.data.synthetic import (
     make_paired_dataset)
@@ -289,15 +289,10 @@ def test_cli_without_gpu_and_without_device_cpu_prints_no_metric(
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--sync-bn"], "item 6"), (["--plots"], "item 7"),
-    (["--data-parallel", "2"], "item 6"), (["--wandb"], "item 7")])
+    (["--plots"], "item 7"), (["--wandb"], "item 7")])
 def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
-        if flag == ["--sync-bn"]:  # the train CLI's, beside the test CLI's
-            train_cli.run(train_cli.parse_args(
-                ["--data", ws["data_yaml"], "--device", "cpu"] + flag))
-        else:
-            _port(ws, ["--weights", ws["ckpts"][0]] + flag)
+        _port(ws, ["--weights", ws["ckpts"][0]] + flag)
 
 
 @pytest.mark.parametrize("flag", ["--augment", "--int8", "--compute-loss"])
