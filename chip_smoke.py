@@ -94,7 +94,22 @@ failure raises and the script exits non-zero:
    the card, an fp32 l@640 step of 4 images per rank against one
    process's step on all 8 (loss, statistics, gradients); a
    ``{"parallel_aug": {...}}`` line.
-10. a ``{"kernels": [...]}`` line, the card line, and the final
+10. the long tail: (a) the 13 hub configs of tests/test_model.py at full
+   width with their parameter pins, one fused bf16 forward of each (batch
+   2 at 640 px, 1280 for the P6 family) against the unfused fp32 model,
+   ms per batch; ``hubconf.yolov5l6`` through ``Detector.__call__``;
+   yolov5l6 with ``--c3-kernel`` at 1280 px, K2 at each of its shapes
+   (C = 384 new) against the plain twin, its launches and ms; (b)
+   Grad-CAM on l@640 transformerx3 at three nodes, ``sum`` mode through
+   K1 against the plain stack, ``grad`` mode in fp32 card vs CPU on one
+   pair at 320 px, the CLI's overlays; (c) the export CLI at l@640 batch
+   1 with and without ``--with-nms``, ``torch.export.load`` on the card
+   against ``Detector.infer``, export and run times; (d) ``model_info``
+   of l@640 with the CFT layers' FLOPs against K1's analytic count; (e)
+   ``test_cli --plots`` (without matplotlib: its exit message) and the
+   train CLI for one epoch with ``--wandb`` and no wandb; a
+   ``{"long_tail": {...}}`` line.
+11. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -152,8 +167,8 @@ TOL_FP32 = 2e-5        # sum order only (fp32 FMA both sides, no TF32)
 TOL_BF16 = 8e-3        # both round the same fp32 value: <= 2 bf16 ulps apart
 TOL_BF16_STACK = 1.5e-2  # 8 layers of such rounding points
 TOL_BF16_MODEL = 2e-2    # through the rest of the network after 3 stages
-CFT_SOURCE = "multispectral_object_detection_tpu/ops/pallas_fusion.py:124"
-C3_SOURCE = "multispectral_object_detection_tpu/ops/pallas_c3.py:100"
+CFT_SOURCE = "multispectral_object_detection_tpu/ops/pallas_fusion.py:102"
+C3_SOURCE = "multispectral_object_detection_tpu/ops/pallas_c3.py:90"
 CSRC = "multispectral_object_detection_tpu_torch/kernels/csrc/"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "cft_layernorm": (CSRC + "layernorm.cu", CFT_SOURCE),
@@ -2066,6 +2081,482 @@ def phase_parallel_aug(torch, device, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
+# ------------------------------------------------------------- phase 10
+# the 13 hub configs of tests/test_model.py with their parameter pins
+# (verified there against the reference under torch); the P6 family runs
+# at 1280 px, the rest at 640
+ZOO = (("yolov3", 61949149), ("yolov3-spp", 62998749),
+       ("yolov3-tiny", 8852366), ("yolov5-fpn", 50262781),
+       ("yolov5-panet", 47818749), ("yolov5-p2", 47953533),
+       ("yolov5-p7", 143955579), ("yolov5s6", 12667836),
+       ("yolov5m6", 35917020), ("yolov5l6", 77263228),
+       ("yolov5x6", 141821340), ("yolov5-p6", 77263228),
+       ("yolov5s-transformer", 7276861))
+ZOO_P6 = {"yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6", "yolov5-p6"}
+ZOO_IMG, ZOO_P6_IMG, ZOO_BATCH = 640, 1280, 2
+# Grad-CAM nodes of l@640 transformerx3: the RGB stem at P3, the P4 CFT
+# stage's output added to the RGB stream (the stage itself outputs a pair)
+# and the last neck node (P5)
+CAM_LAYERS = (4, 18, 45)
+CAM_GRAD_IMG = 320     # one pair, so the CPU's fp32 backward stays short
+TOL_CAM_GRAD = 1e-3    # fp32 card vs CPU, TF32 off, CAM in [0, 1]
+EXPORT_CONF = 0.01     # random weights score about 0.02: boxes to compare
+
+
+def _zoo_10a(torch, device) -> dict:
+    """10a: every hub config built at full width on the card with its pin,
+    a fused bf16 forward against the unfused fp32 model, ms per batch; the
+    P6 constructor serving 2 frames; yolov5l6 with --c3-kernel, K2 at its
+    new shapes against the plain twin."""
+    from multispectral_object_detection_tpu_torch import hubconf
+    from multispectral_object_detection_tpu_torch.hub import create
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.layers import (
+        Bottleneck)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        build_model, cast_inference_params, init_weights,
+        load_reference_state_dict)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+
+    import numpy as np
+
+    out = {"configs": {}}
+    gen = torch.Generator(device=device).manual_seed(10)
+    for name, pin in ZOO:
+        img = ZOO_P6_IMG if name in ZOO_P6 else ZOO_IMG
+        cfg = get_config(name)
+        ref = build_model(cfg)
+        init_weights(ref, torch.Generator().manual_seed(0))
+        n_par = sum(p.numel() for p in ref.parameters())
+        check(n_par == pin, f"{name}: {n_par} parameters, pinned {pin}")
+        sd = ref.state_dict()
+        ref = ref.to(device).to(memory_format=torch.channels_last)
+        fused = create(cfg, state_dict=sd, dtype=torch.bfloat16,
+                       device=device)
+        x = torch.rand((ZOO_BATCH, 3, img, img), generator=gen,
+                       device=device).contiguous(
+                           memory_format=torch.channels_last)
+        with torch.inference_mode():
+            want = ref(x)
+            got = fused(x)
+            ms = cuda_ms(lambda: fused(x), iters=5, warmup=1)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"{name}: non-finite outputs")
+        worst = max(rel_err(g, w)[0] for g, w in zip(got, want))
+        print(f"zoo {name}: {n_par:,} parameters (pinned), {len(got)} scales "
+              f"at {img} px, fused bf16 vs fp32 rel={worst:.3e} "
+              f"tol={TOL_BF16_MODEL:.1e}, {ms:.3f} ms per batch of "
+              f"{ZOO_BATCH}")
+        check(worst <= TOL_BF16_MODEL, f"{name}: bf16 forward disagrees")
+        out["configs"][name] = {"params": n_par, "img": img,
+                                "rel_err": worst, "ms": ms}
+        del ref, fused, x, want, got
+        torch.cuda.empty_cache()
+
+    # the P6 constructor, through Detector.__call__ (single stream)
+    det = hubconf.yolov5l6(img_size=ZOO_P6_IMG, conf=SERVE_CONF,
+                           device=device,
+                           generator=torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(11)
+    frames = [torch.randint(0, 256, (1024, 1280, 3), dtype=torch.uint8,
+                            generator=rng).numpy() for _ in range(2)]
+    res = det(frames)
+    check(len(res) == 2 and all(np.isfinite(b).all() and
+                                (b[:, 2] <= 1280).all() for b in res.boxes),
+          "hubconf.yolov5l6: results")
+    print(f"zoo hubconf.yolov5l6: Detector.__call__ on 2 frames of "
+          f"1280x1024, detections {[len(b) for b in res.boxes]}")
+    out["hubconf_yolov5l6_detections"] = [len(b) for b in res.boxes]
+    del det
+
+    # yolov5l6 with --c3-kernel at 1280: K2 at the P6 family's shapes
+    model = build_model(get_config("yolov5l6"), dtype=torch.bfloat16,
+                        use_c3_kernel=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device).fuse()
+    cast_inference_params(model, torch.bfloat16)
+    model = model.to(memory_format=torch.channels_last)
+    blocks = [m for m in model.modules()
+              if isinstance(m, Bottleneck) and m.takes_kernel]
+    seen = {}  # NHWC shape -> [a block, its input, blocks of that shape]
+
+    def grab(mod, inp, _out):
+        x = inp[0].permute(0, 2, 3, 1)
+        if tuple(x.shape) not in seen:
+            seen[tuple(x.shape)] = [mod, x.contiguous(), 0]
+        seen[tuple(x.shape)][2] += 1
+
+    x = torch.rand((ZOO_BATCH, 3, ZOO_P6_IMG, ZOO_P6_IMG), generator=gen,
+                   device=device).contiguous(memory_format=torch.channels_last)
+    hooks = [m.register_forward_hook(grab) for m in blocks]
+    k2.reset_launches()
+    with torch.inference_mode():
+        raw_k = model(x)
+    torch.cuda.synchronize()
+    launches = k2.LAUNCHES["c3_bottleneck"]
+    for h in hooks:
+        h.remove()
+    check(launches == 2 * len(blocks) and len(blocks) == 24,
+          f"yolov5l6 --c3-kernel: {launches} K2 launches for "
+          f"{len(blocks)} blocks, expected 48 for 24")
+    shapes, k2_ms = {}, 0.0
+    for shape, (m, xin, n) in sorted(seen.items()):
+        w1, w2 = m.kernel_weights(xin.dtype)
+        args = (xin, w1, m.cv1.conv.bias, w2, m.cv2.conv.bias)
+        with torch.inference_mode():
+            rel = rel_err(k2.c3_bottleneck(*args),
+                          k2.c3_bottleneck_plain(*args))[0]
+            ms = cuda_ms(lambda: k2.c3_bottleneck(*args), iters=10)
+        check(rel <= TOL_BF16, f"K2 at {shape}: rel={rel:.3e}")
+        shapes[str(shape)] = {"blocks": n, "rel_err": rel, "ms": ms}
+        k2_ms += n * ms
+        print(f"zoo yolov5l6 K2 at {shape} x {n}: rel={rel:.3e} "
+              f"tol={TOL_BF16:.1e}, {ms:.4f} ms per block")
+    for m in blocks:
+        m.c3_fn = k2.c3_bottleneck_plain
+    with torch.inference_mode():
+        raw_p = model(x)
+        fwd_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        for m in blocks:
+            m.c3_fn = k2.c3_bottleneck
+        fwd_k_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+    worst = max(rel_err(a, b)[0] for a, b in zip(raw_k, raw_p))
+    check(worst <= TOL_BF16_MODEL, f"yolov5l6 K2 forward: rel={worst:.3e}")
+    print(f"zoo yolov5l6 --c3-kernel at {ZOO_P6_IMG} px bs{ZOO_BATCH}: K2 "
+          f"{launches} launches per forward, {k2_ms:.4f} ms of K2; forward "
+          f"{fwd_k_ms:.3f} ms (plain twin {fwd_ms:.3f}); raw outputs K2 vs "
+          f"plain rel={worst:.3e}")
+    out["yolov5l6_c3_kernel"] = {"k2_launches": launches, "k2_ms": k2_ms,
+                                 "forward_ms": fwd_k_ms,
+                                 "forward_plain_ms": fwd_ms,
+                                 "rel_err": worst, "shapes": shapes}
+    del model, raw_k, raw_p, x, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gradcam_10b(torch, device, tmp: Path) -> dict:
+    """10b: Grad-CAM on l@640 transformerx3: sum mode through K1 against
+    the plain stack, grad mode in fp32 card vs CPU on one pair at 320 px,
+    and the CLI's overlays. Returns the result and the .pt written."""
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.hub import create
+    from multispectral_object_detection_tpu_torch.models.model import (
+        plain_kernels)
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.utils import gradcam
+
+    name = "yolov5l_fusion_transformerx3"
+    out = {"layers": list(CAM_LAYERS)}
+    model = create(name, 1, dtype=torch.bfloat16, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(12)
+    x, x2 = (torch.rand((2, 3, IMG, IMG), generator=gen, device=device)
+             for _ in range(2))
+    for layer in CAM_LAYERS:
+        cs.reset_launches()
+        cam_k = gradcam.compute_cam(model, x, x2, layer=layer, mode="sum")
+        torch.cuda.synchronize()
+        k1 = sum(cs.LAUNCHES.values())
+        acts = []
+        for plain in (False, True):
+            with contextlib.ExitStack() as stack:
+                if plain:
+                    stack.enter_context(plain_kernels(model))
+                box = stack.enter_context(gradcam.tap(model, layer))
+                with torch.inference_mode():
+                    model(x, x2)
+                acts.append(box["act"])
+        with plain_kernels(model):
+            cam_p = gradcam.compute_cam(model, x, x2, layer=layer,
+                                        mode="sum")
+        rel = rel_err(*acts)[0]
+        d = (cam_k - cam_p).abs().max().item()
+        print(f"gradcam sum node {layer}: CAM {tuple(cam_k.shape)}, K1 "
+              f"{k1} launches; the node's activation K1 vs plain rel="
+              f"{rel:.3e} tol={TOL_BF16_MODEL:.1e}, CAMs max|diff|={d:.3e}")
+        check(k1 == 168 and rel <= TOL_BF16_MODEL,
+              f"gradcam sum node {layer}: K1 launches {k1}, rel {rel:.3e}")
+        out[f"sum_{layer}"] = {"k1_launches": k1, "act_rel_err": rel,
+                               "cam_max_abs_diff": d}
+    sd = {k: v.float() for k, v in create(
+        name, 1, dtype=torch.float32, device=device, fuse=False,
+        generator=torch.Generator().manual_seed(0)).state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+
+    # grad mode: fp32 on the card against the CPU, TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu_sd = {k: v.cpu() for k, v in sd.items()}
+        m_gpu = create(name, 1, state_dict=sd, dtype=torch.float32,
+                       device=device)
+        m_cpu = create(name, 1, state_dict=cpu_sd, dtype=torch.float32,
+                       device="cpu")
+        g = torch.Generator().manual_seed(13)
+        a, b = (torch.rand((1, 3, CAM_GRAD_IMG, CAM_GRAD_IMG), generator=g)
+                for _ in range(2))
+        for layer in CAM_LAYERS:
+            t0 = time.perf_counter()
+            cam_g = gradcam.compute_cam(m_gpu, a.to(device), b.to(device),
+                                        layer=layer, mode="grad")
+            cam_c = gradcam.compute_cam(m_cpu, a, b, layer=layer,
+                                        mode="grad")
+            d = (cam_g.cpu() - cam_c).abs().max().item()
+            print(f"gradcam grad node {layer}: fp32 card vs CPU max|diff|="
+                  f"{d:.3e} tol={TOL_CAM_GRAD:.1e} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            check(d <= TOL_CAM_GRAD, f"gradcam grad node {layer}: {d:.3e}")
+            out[f"grad_{layer}"] = {"max_abs_diff": d}
+        del m_gpu, m_cpu
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # the CLI, on a bf16 .pt of the same weights
+    ckpt = tmp / "l.pt"
+    torch.save({k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                for k, v in sd.items()}, ckpt)
+    del sd, cpu_sd
+    rgb_dir, ir_dir = make_paired_dataset(str(tmp / "cam"), n_images=2,
+                                          img_size=IMG, nc=1, seed=9)
+    rc = gradcam.main(["--cfg", name, "--nc", "1", "--weights", str(ckpt),
+                       "--source1", rgb_dir, "--source2", ir_dir,
+                       "--layers", *map(str, CAM_LAYERS[:2]), "--img-size",
+                       str(IMG), "--mode", "sum", "--project",
+                       str(tmp / "cam_runs")])
+    files = sorted((tmp / "cam_runs" / "exp").iterdir())
+    check(rc == 0 and len(files) == 4, f"gradcam CLI: rc {rc}, {files}")
+    print(f"gradcam CLI: {len(files)} overlays ({files[0].suffix})")
+    out["cli_overlays"] = len(files)
+    torch.cuda.empty_cache()
+    return out, ckpt
+
+
+def _export_10c(torch, device, ckpt: Path, tmp: Path) -> dict:
+    """10c: the export CLI on l@640 batch 1 with and without --with-nms;
+    torch.export.load runs each on the card against Detector.infer (K1)."""
+    from multispectral_object_detection_tpu_torch.cli import export_cli
+    from multispectral_object_detection_tpu_torch.hub import Detector
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.ops.boxes import (
+        pairwise_iou)
+    from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
+
+    name = "yolov5l_fusion_transformerx3"
+    export_cli.NMS_KW["conf_thres"] = EXPORT_CONF
+    det = Detector(name, nc=1, weights=str(ckpt), img_size=IMG,
+                   conf=EXPORT_CONF, device=device)
+    gen = torch.Generator(device=device).manual_seed(14)
+    rgb, ir = (torch.randint(0, 256, (1, IMG, IMG, 3), dtype=torch.uint8,
+                             generator=gen, device=device) for _ in range(2))
+    with torch.inference_mode():
+        want_dets = det.model.decode(det.raw(rgb, ir))
+        want = det.infer(rgb, ir)
+    infer_ms = cuda_ms(lambda: det.infer(rgb, ir), iters=5, warmup=1)
+    out = {"infer_ms": infer_ms}
+    progs = {}
+    for nms in (False, True):
+        t0 = time.perf_counter()
+        d = export_cli.run(export_cli.parse_args(
+            ["--cfg", name, "--weights", str(ckpt), "--img-size", str(IMG),
+             "--out", str(tmp / f"export_{nms}")]
+            + (["--with-nms"] if nms else [])))
+        t_export = time.perf_counter() - t0
+        manifest = json.loads((Path(d) / "manifest.json").read_text())
+        program = torch.export.load(str(Path(d) / "model.pt2")).module()
+        t_load = time.perf_counter() - t0 - t_export
+        cs.reset_launches()
+        got = program(rgb, ir)
+        torch.cuda.synchronize()
+        check(sum(cs.LAUNCHES.values()) == 0,
+              "the exported program launched a ctypes kernel")
+        ms = cuda_ms(lambda: program(rgb, ir), iters=5, warmup=1)
+        progs[nms] = got
+        check(manifest["platforms"] == ["cuda"] and
+              manifest["with_nms"] == nms, f"manifest {manifest}")
+        if not nms:
+            rel = rel_err(got, want_dets)[0]
+            print(f"export (no NMS): decoded {tuple(got.shape)} vs "
+                  f"Detector's (K1) rel={rel:.3e} tol={TOL_BF16_MODEL:.1e}")
+            check(rel <= TOL_BF16_MODEL, f"exported decode: {rel:.3e}")
+            out["no_nms"] = {"export_s": t_export, "load_s": t_load,
+                             "ms": ms, "rel_err": rel}
+        else:
+            boxes, scores, classes, valid = got
+            # the traced fixed-trip NMS against the early-exit form on the
+            # program's own decoded detections
+            ref = batched_nms(progs[False], conf_thres=EXPORT_CONF,
+                              iou_thres=0.45, multi_label=False,
+                              max_det=300, top_k=1024)
+            same = bool(torch.equal(valid, ref.valid) and
+                        torch.equal(classes, ref.classes) and
+                        torch.allclose(boxes, ref.boxes, atol=1e-3))
+            # against Detector.infer (K1): bf16 rounding reorders the
+            # near-equal scores of random weights, so greedy NMS keeps
+            # other boxes of a cluster; each box kept by one side must lie
+            # in a cluster the other keeps (same class, IoU > 0.45, the
+            # suppression threshold)
+            def covered(a, b):
+                va, vb = a.valid[0], b.valid[0]
+                iou = pairwise_iou(a.boxes[0][va], b.boxes[0][vb])
+                hit = (iou > 0.45) & (a.classes[0][va][:, None] ==
+                                      b.classes[0][vb][None, :])
+                return float(hit.any(1).float().mean()) if int(va.sum()) \
+                    else 1.0
+
+            mine = ref._replace(boxes=boxes, scores=scores, classes=classes,
+                                valid=valid)
+            v, wv = valid[0], want.valid[0]
+            share = min(covered(mine, want), covered(want, mine))
+            print(f"export (NMS): {int(v.sum())} boxes (Detector.infer "
+                  f"{int(wv.sum())}); equal to batched_nms on its decode: "
+                  f"{same}; each side's boxes in the other's clusters: "
+                  f"{share:.3f}")
+            check(same and share >= 0.9 and int(v.sum()) > 0,
+                  "exported NMS program disagrees")
+            out["nms"] = {"export_s": t_export, "load_s": t_load, "ms": ms,
+                          "boxes": int(v.sum()),
+                          "infer_boxes": int(wv.sum()),
+                          "covered": share}
+        print(f"export{' --with-nms' if nms else ''}: export "
+              f"{t_export:.1f} s, load {t_load:.1f} s, {ms:.3f} ms per "
+              f"batch of 1 (Detector.infer {infer_ms:.3f} ms)")
+    export_cli.NMS_KW["conf_thres"] = 0.25
+    del det, progs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profiling_10d(torch, device) -> dict:
+    """10d: model_info of l@640: parameters and GFLOPs with every CFT
+    layer, beside K1's analytic FLOPs."""
+    from multispectral_object_detection_tpu_torch.hub import create
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.utils import profiling
+
+    model = create("yolov5l_fusion_transformerx3", 1, dtype=torch.bfloat16,
+                   device=device, fuse=False,
+                   generator=torch.Generator().manual_seed(0))
+    info = profiling.model_info(model, IMG)
+    k1 = profiling.cft_flops(model)
+    plain = cs.fused_cft_stack_plain
+    cs.fused_cft_stack_plain = lambda x, *w, **k: x
+    try:
+        without = profiling.estimate_flops(model, IMG)
+    finally:
+        cs.fused_cft_stack_plain = plain
+    print(f"profiling l@640: {info['layers']} nodes, {info['params']:,} "
+          f"parameters, {info['flops'] / 1e9:.3f} GFLOPs per pair; the 24 "
+          f"CFT layers {(info['flops'] - without) / 1e9:.3f} GFLOPs, K1's "
+          f"analytic count {k1 / 1e9:.3f} (x16 = {16 * k1 / 1e9:.3f} per "
+          f"bs16 forward)")
+    check(info["params"] == 206247222 and info["flops"] - without == k1,
+          "model_info: parameters or CFT FLOPs")
+    del model
+    torch.cuda.empty_cache()
+    return {"params": info["params"], "gflops": info["flops"] / 1e9,
+            "cft_gflops": k1 / 1e9}
+
+
+def _plots_10e(torch, ckpt: Path, tmp: Path) -> dict:
+    """10e: test_cli --plots (the missing-matplotlib exit, or the plots);
+    the train CLI for one epoch with --wandb and no wandb."""
+    import logging
+
+    from multispectral_object_detection_tpu_torch.cli import (test_cli,
+                                                               train_cli)
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.utils import plots
+
+    rgb_dir, ir_dir = make_paired_dataset(str(tmp / "plots"), n_images=4,
+                                          img_size=IMG, nc=1, seed=15)
+    data = {"train_rgb": rgb_dir, "train_ir": ir_dir, "val_rgb": rgb_dir,
+            "val_ir": ir_dir, "nc": 1, "names": ["person"]}
+    args = test_cli.parse_args(["--data", "unused", "--weights", str(ckpt),
+                                "--plots", "--save-hybrid", "--project",
+                                str(tmp / "test_runs"), "--batch-size", "4"])
+    args.data = data
+    out = {"matplotlib": plots.available()}
+    if plots.available():
+        test_cli.run(args)
+        written = sorted(p.name for p in (tmp / "test_runs" / "exp").glob(
+            "*.png"))
+        check("confusion_matrix.png" in written, f"plots: {written}")
+        print(f"test_cli --plots: {written}")
+    else:
+        try:
+            test_cli.run(args)
+            raise RuntimeError("test_cli --plots ran without matplotlib")
+        except SystemExit as e:
+            check("matplotlib" in str(e), f"test_cli --plots: {e}")
+            print(f"test_cli --plots without matplotlib: {e}")
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logging.getLogger().addHandler(handler)
+    saved = sys.modules.get("wandb", "absent")
+    sys.modules["wandb"] = None  # no wandb, whether installed or not
+    targs = train_cli.parse_args([
+        "--data", "unused", "--cfg", "yolov5n_fusion_transformerx3",
+        "--img-size", "128", "--batch-size", "4", "--epochs", "1", "--wandb",
+        "--noval", "--noautoanchor", "--project", str(tmp / "train_runs")])
+    targs.data = data
+    try:
+        t0 = time.perf_counter()
+        r = train_cli.run(targs)
+    finally:
+        logging.getLogger().removeHandler(handler)
+        if saved == "absent":
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+    warned = [m for m in records if "wandb unavailable" in m]
+    lines = (Path(r["save_dir"]) / "results.txt").read_text().splitlines()
+    check(len(warned) == 1 and len(lines) == 1,
+          f"train CLI --wandb: warnings {warned}, results {lines}")
+    print(f"train_cli --wandb without wandb: warned once, 1 epoch in "
+          f"{time.perf_counter() - t0:.1f} s: {lines[0]}")
+    out["train_wandb_warned"] = True
+    return out
+
+
+def phase_long_tail(torch, device) -> dict:
+    """Phase 10: the hub zoo, Grad-CAM, export, profiling, plots and
+    loggers on the card."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tail_"))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["zoo"] = _zoo_10a(torch, device)
+        out["zoo"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["gradcam"], ckpt = _gradcam_10b(torch, device, tmp)
+        out["gradcam"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["export"] = _export_10c(torch, device, ckpt, tmp)
+        out["export"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["profiling"] = _profiling_10d(torch, device)
+        t1 = time.perf_counter()
+        out["plots_loggers"] = _plots_10e(torch, ckpt, tmp)
+        out["plots_loggers"]["seconds"] = time.perf_counter() - t1
+        out["profiling"]["seconds"] = t1 - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2116,6 +2607,9 @@ def main() -> int:
     par = phase_parallel_aug(torch, device, card)
     print(f"phase 9: device augmentation, --quad, --evolve and the parallel "
           f"path in {par['seconds']:.1f} s")
+    tail = phase_long_tail(torch, device)
+    print(f"phase 10: the hub zoo, Grad-CAM, export, profiling, plots and "
+          f"loggers in {tail['seconds']:.1f} s")
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -2129,6 +2623,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
     print(json.dumps({"parallel_aug": par}))
+    print(json.dumps({"long_tail": tail}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ defaults, on the GPU.
 
 Tasks: ``val`` (mAP on the val split; ``test`` takes the test split where
 the data names one), ``speed`` (forward + decode ms per image) and
-``study`` (mAP over image sizes, written to ``study_<cfg>.txt``; no plot).
+``study`` (mAP over image sizes, written to ``study_<cfg>.txt`` and
+plotted to ``study.png`` where matplotlib is installed).
 Weights are JAX checkpoint directories or ``.pt`` reference-layout state
 dicts (utils/checkpoint.py); several make an ensemble. ``--device``
 defaults to CUDA and fails without a GPU; ``--device cpu`` runs on the CPU.
@@ -18,9 +19,11 @@ gains. ``--data-parallel N`` splits each batch over N ranks (forward and
 NMS per rank, detections gathered, metrics on rank 0;
 parallel/mesh.py): under a launcher (``torchrun --nproc-per-node N``) it
 takes the launched ranks, else it starts them itself; NCCL on CUDA, gloo
-with ``--device cpu``. Flags whose modules are not ported yet exit with a
-message naming the ROADMAP item that brings them: ``--plots`` and
-``--wandb``.
+with ``--device cpu``. ``--plots`` writes the confusion matrix and the
+PR, F1, P and R curves into the run directory (utils/plots.py; without
+matplotlib it exits before any work); ``--wandb`` logs the metrics and
+the first 16 images' detections to W&B (utils/loggers.py; without wandb
+it warns and logs nothing).
 """
 
 from __future__ import annotations
@@ -36,14 +39,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
-
-# flag -> why it stops here (the ROADMAP queue item that ports it)
-DEFERRED = {
-    "plots": "--plots needs utils/plots.py (ROADMAP queue 1, item 7, the "
-             "long tail)",
-    "wandb": "--wandb needs utils/loggers.py (ROADMAP queue 1, item 7, the "
-             "long tail)",
-}
 
 
 def parse_args(argv=None):
@@ -74,7 +69,10 @@ def parse_args(argv=None):
                     help="write COCO-format detection JSON and evaluate it "
                          "by the COCO protocol")
     ap.add_argument("--verbose", action="store_true")
-    ap.add_argument("--wandb", action="store_true", help="not ported yet")
+    ap.add_argument("--wandb", action="store_true",
+                    help="log the metrics and the first 16 val images' "
+                         "detections to W&B (warns and skips without "
+                         "wandb)")
     ap.add_argument("--entity", type=str, default=None, help="W&B entity")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--save-txt", action="store_true",
@@ -86,7 +84,9 @@ def parse_args(argv=None):
                          "label + prediction txts")
     ap.add_argument("--save-conf", action="store_true",
                     help="append the confidence to --save-txt lines")
-    ap.add_argument("--plots", action="store_true", help="not ported yet")
+    ap.add_argument("--plots", action="store_true",
+                    help="write confusion_matrix.png and the PR/F1/P/R "
+                         "curves into the run dir (needs matplotlib)")
     ap.add_argument("--project", type=str, default="runs/test")
     ap.add_argument("--name", type=str, default="exp")
     ap.add_argument("--exist-ok", action="store_true")
@@ -119,9 +119,11 @@ def _load_data(data) -> dict:
 
 
 def _check_flags(args) -> None:
-    for flag, msg in DEFERRED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"test_cli: {msg}")
+    from ..utils import plots
+
+    if args.plots and not plots.available():
+        raise SystemExit(f"test_cli: --plots needs matplotlib: "
+                         f"{plots.MISSING}")
     if args.augment and args.compute_loss:
         raise SystemExit("--augment cannot compute the val loss (the TTA "
                          "scales' raw outputs differ in shape); drop "
@@ -238,11 +240,17 @@ def run(args) -> dict:
     coco = _save_coco_json(fwd, loader, ds, args, device) \
         if args.save_coco and main else None
     names = data.get("names", [str(i) for i in range(nc)])
-    per_image = None
-    if (args.save_txt or args.save_hybrid) and main:
+    save_dir = per_image = confusion = None
+    if (args.save_txt or args.save_hybrid or args.plots) and main:
         save_dir = increment_path(Path(args.project) / args.name,
                                   exist_ok=args.exist_ok)
-        (save_dir / "labels").mkdir(parents=True, exist_ok=True)
+        save_dir.mkdir(parents=True, exist_ok=True)
+    if args.plots and main:
+        from ..utils.metrics import ConfusionMatrix
+
+        confusion = ConfusionMatrix(nc=nc)
+    if (args.save_txt or args.save_hybrid) and main:
+        (save_dir / "labels").mkdir(exist_ok=True)
 
         def per_image(idx, boxes, scores, classes, native_hw):
             # native xyxy -> normalised xywh lines
@@ -258,10 +266,34 @@ def run(args) -> dict:
             (save_dir / "labels" / f"{stem}.txt").write_text(
                 "\n".join(lines) + ("\n" if lines else ""))
 
+    xlog = panels = None
+    if args.wandb and main:  # W&B bbox-debug panels of the first 16 images
+        from ..utils.loggers import ExperimentLogger
+
+        xlog = ExperimentLogger(
+            str(save_dir or Path(args.project) / args.name), enable_tb=False,
+            enable_wandb=True, run_name=args.name, entity=args.entity)
+        if xlog.wandb_run is not None:
+            panels = []
+            per_image = _with_panels(per_image, panels, ds)
+
     res = evaluate(fwd, loader, nc=nc, device=device,
                    conf_thres=args.conf_thres, iou_thres=args.iou_thres,
                    single_cls=args.single_cls, hybrid=args.save_hybrid,
-                   per_image=per_image, loss_fn=loss_fn, shard=shard)
+                   per_image=per_image, confusion=confusion,
+                   curves=args.plots and main, loss_fn=loss_fn, shard=shard)
+    if panels:
+        xlog.log_bbox_debug_images([p[0] for p in panels],
+                                   [p[1] for p in panels], names)
+    if xlog is not None:
+        xlog.log_scalars({"metrics/precision": res["mp"],
+                          "metrics/recall": res["mr"],
+                          "metrics/mAP_0.5": res["map50"],
+                          "metrics/mAP_0.75": res["map75"],
+                          "metrics/mAP_0.5:0.95": res["map"]}, 0)
+        xlog.close()
+    if confusion is not None:
+        _plot_eval(confusion, res.get("curves"), names, save_dir)
     if coco is not None:
         res["coco"] = coco
     if "lamr" in res:
@@ -284,21 +316,57 @@ def run(args) -> dict:
     if args.save_json and main:
         Path(args.save_json).write_text(json.dumps(
             {k: v for k, v in res.items()
-             if isinstance(v, (int, float, dict))},
+             if isinstance(v, (int, float, dict)) and k != "curves"},
             indent=1, default=float))
     return res
 
 
+def _with_panels(per_image, panels: list, ds):
+    """``per_image`` that also keeps the first 16 images with their
+    detections, for W&B's bbox-debug panels."""
+    from ..data.imageio import imread
+
+    def hook(idx, boxes, scores, classes, native_hw):
+        if per_image is not None:
+            per_image(idx, boxes, scores, classes, native_hw)
+        if len(panels) < 16 and idx < len(ds.rgb_files):
+            panels.append((imread(ds.rgb_files[idx]),
+                           (boxes, scores, classes)))
+
+    return hook
+
+
+def _plot_eval(confusion, curves, names, save_dir: Path) -> None:
+    """confusion_matrix.png and the PR, F1, P and R curves."""
+    from ..utils.plots import (plot_confusion_matrix, plot_mc_curve,
+                               plot_pr_curve)
+
+    plot_confusion_matrix(confusion.matrix, names,
+                          str(save_dir / "confusion_matrix.png"))
+    if curves is not None:
+        cls_names = [names[int(c)] if int(c) < len(names) else str(c)
+                     for c in curves["cls_ids"]]
+        plot_pr_curve(curves["pr_px"], curves["pr_py"], curves["ap"],
+                      str(save_dir / "PR_curve.png"), cls_names)
+        for key, fname in (("f1", "F1_curve.png"), ("p", "P_curve.png"),
+                           ("r", "R_curve.png")):
+            plot_mc_curve(curves["px"], curves[key], str(save_dir / fname),
+                          cls_names, ylabel=key.upper())
+    logger.info(f"plots -> {save_dir}")
+
+
 def study_task(args) -> dict:
     """mAP over image sizes 256-640; rows [size, P, R, mAP50, mAP,
-    infer ms, NMS ms] go to <project>/<name>/study_<cfg>.txt."""
+    infer ms, NMS ms] go to <project>/<name>/study_<cfg>.txt, plotted to
+    study.png where matplotlib is installed."""
+    from ..utils import plots
     from ..utils.general import increment_path
 
     results, rows = {}, []
     for sz in (256, 320, 384, 448, 512, 640):
         sub = argparse.Namespace(**vars(args))
         sub.img_size, sub.task = sz, "val"
-        sub.save_txt = sub.save_hybrid = False
+        sub.save_txt = sub.save_hybrid = sub.plots = False
         sub.save_json = sub.save_coco = ""
         r = run(sub)
         results[sz] = {"map50": r["map50"], "map": r["map"]}
@@ -310,6 +378,10 @@ def study_task(args) -> dict:
     save_dir.mkdir(parents=True, exist_ok=True)
     sf = save_dir / f"study_{Path(str(args.cfg)).stem}.txt"
     np.savetxt(sf, np.asarray(rows), fmt="%.5g")
+    if plots.available():
+        plots.plot_study([str(sf)], str(save_dir / "study.png"))
+    else:
+        logger.info(f"study plot skipped: {plots.MISSING}")
     logger.info(f"study results -> {sf}")
     return results
 

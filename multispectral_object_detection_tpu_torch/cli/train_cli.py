@@ -34,9 +34,17 @@ with ``--device cpu``. The batch is rounded up to a multiple of the data
 ranks, BatchNorm is synchronised (``--sync-bn`` is always on), the
 per-epoch eval is split over the data ranks, and only rank 0 writes.
 
-Flags whose modules are not ported yet exit with a message naming the
-ROADMAP item that brings them. Plots and TensorBoard are not ported
-(ROADMAP queue 1, item 7); the run says so once.
+Observability (utils/loggers.py, utils/plots.py): TensorBoard scalars in
+``<run>/tb`` (unless ``--nosave``; where the tensorboard package imports),
+W&B with ``--wandb`` (``--entity``, ``--upload-dataset`` logs the dataset
+as an artifact, ``--bbox-interval N`` the val detections every N epochs,
+``--save-period`` the checkpoints; ``--resume wandb-artifact://...``
+fetches a checkpoint; without wandb it warns and logs nothing), and the
+plots of labels, LR schedule, the first 3 batches and the results, and
+``evolve.png`` after ``--evolve``; without matplotlib the run says once
+that plots are skipped. ``--data`` and a ``--cfg`` YAML are found by
+``check_file``; ``check_dataset`` checks the val paths (and runs the
+data's ``download`` recipe where they are missing).
 """
 
 from __future__ import annotations
@@ -52,19 +60,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
-
-_ITEM7 = "ROADMAP queue 1, item 7"
-# flag -> (its default, why it stops here: the ROADMAP item that ports it)
-DEFERRED = {
-    "wandb": (False, f"--wandb needs utils/loggers.py ({_ITEM7})"),
-    "upload_dataset": (False, f"--upload-dataset needs utils/loggers.py "
-                              f"({_ITEM7})"),
-    "entity": (None, f"--entity needs utils/loggers.py ({_ITEM7})"),
-    "bbox_interval": (-1, f"--bbox-interval needs utils/loggers.py "
-                          f"({_ITEM7})"),
-    "artifact_alias": ("latest", f"--artifact-alias needs utils/loggers.py "
-                                 f"({_ITEM7})"),
-}
 
 
 def parse_args(argv=None):
@@ -154,22 +149,21 @@ def parse_args(argv=None):
     ap.add_argument("--local_rank", type=int, default=-1,
                     help="the reference launcher's rank on this host "
                          "(torchrun sets LOCAL_RANK instead)")
-    # flags of modules not ported yet (DEFERRED)
-    ap.add_argument("--wandb", action="store_true", help="not ported")
+    ap.add_argument("--wandb", action="store_true",
+                    help="W&B logging (warns and skips without wandb)")
     ap.add_argument("--upload-dataset", "--upload_dataset",
-                    action="store_true", help="not ported")
-    ap.add_argument("--entity", type=str, default=None, help="not ported")
+                    action="store_true",
+                    help="log the dataset as a W&B artifact")
+    ap.add_argument("--entity", type=str, default=None, help="W&B entity")
     ap.add_argument("--bbox-interval", "--bbox_interval", type=int,
-                    default=-1, help="not ported")
+                    default=-1,
+                    help="log W&B bbox-debug panels of the val set every N "
+                         "epochs; -1 = off")
     ap.add_argument("--artifact-alias", "--artifact_alias", type=str,
-                    default="latest", help="not ported")
+                    default="latest",
+                    help="accepted for compatibility; dataset artifact "
+                         "versioning rides --upload-dataset")
     return ap.parse_args(argv)
-
-
-def _check_flags(args) -> None:
-    for flag, (default, msg) in DEFERRED.items():
-        if getattr(args, flag, default) != default:
-            raise SystemExit(f"train_cli: {msg}")
 
 
 def _flat(d: dict) -> dict:
@@ -225,12 +219,14 @@ def run(args) -> dict:
     from ..utils.checkpoint import (CheckpointWriter, load_checkpoint,
                                     load_inference_params, partial_load,
                                     save_checkpoint, strip_checkpoint)
-    from ..utils.general import (check_img_size, device_from_arg,
-                                 get_latest_run, increment_path, init_seeds)
+    from ..utils import plots
+    from ..utils.general import (check_dataset, check_file, check_img_size,
+                                 device_from_arg, get_latest_run,
+                                 increment_path, init_seeds)
+    from ..utils.loggers import ExperimentLogger
     from ..utils.metrics import fitness
-    from .test_cli import _load_data
+    from .test_cli import _load_data, _with_panels
 
-    _check_flags(args)
     device = device_from_arg(args.device)
     world, device = pm.init_distributed(device, args.local_rank)
     if args.n_model > 1 and world == 1:
@@ -260,11 +256,12 @@ def run(args) -> dict:
         save_dir = box[0]
     logger.info(f"run dir: {save_dir} ({device}"
                 f"{f', {mesh}' if mesh else ''})")
-    if not args.nosave and main:
-        logger.info("plots and TensorBoard are not ported yet (ROADMAP "
-                    "queue 1, item 7): results.txt and final.json only")
-
+    if isinstance(args.data, str):
+        args.data = check_file(args.data)  # a recursive search
+    if str(args.cfg).endswith((".yaml", ".yml")):
+        args.cfg = check_file(args.cfg)
     data = _load_data(args.data)
+    check_dataset(data)  # the val paths, or the data's download recipe
     nc = 1 if args.single_cls else int(data["nc"])
     two_stream = "train_ir" in data
     sizes = (args.img_size if isinstance(args.img_size, (list, tuple))
@@ -417,6 +414,14 @@ def run(args) -> dict:
                              f"{args.project} or runs/")
         args.resume = found
         logger.info(f"--resume: found {found}")
+    if str(args.resume).startswith("wandb-artifact://"):
+        local = ExperimentLogger(
+            str(save_dir), enable_tb=False, enable_wandb=True,
+            run_name=args.name).resume_from_artifact(
+                args.resume, str(save_dir / "artifact"))
+        if local is None:
+            raise RuntimeError(f"could not fetch artifact {args.resume}")
+        args.resume = local
     if args.resume:
         state, meta = load_checkpoint(args.resume, state)
         start_epoch = meta.get("epoch", -1) + 1
@@ -456,6 +461,30 @@ def run(args) -> dict:
                 save_checkpoint(path, sd, epoch=epoch, best_fitness=best,
                                 writer=writer)
 
+    # ---- observability: TensorBoard, W&B, plots (rank 0)
+    xlog = ExperimentLogger(str(save_dir), enable_tb=not args.nosave and main,
+                            enable_wandb=args.wandb and main,
+                            config=_flat(vars(args)), run_name=args.name,
+                            entity=args.entity)
+    if args.upload_dataset:
+        xlog.log_dataset_artifact(data, name=Path(str(args.data)).stem if
+                                  isinstance(args.data, str) else "dataset")
+    draw = not args.nosave and main and plots.available()
+    if not args.nosave and main and not draw:
+        logger.info(f"plots skipped: {plots.MISSING}")
+    if draw:
+        try:
+            plots.plot_labels(train_ds.labels, data.get("names", []),
+                              str(save_dir))
+            plots.plot_label_correlogram(train_ds.labels, str(save_dir))
+            plots.plot_lr_schedule(ohyp, steps_per_epoch, args.epochs,
+                                   args.batch_size, str(save_dir),
+                                   linear_lr=args.linear_lr)
+        except Exception as e:
+            logger.warning(f"label plot failed: {e}")
+    plotted = 0
+    names = data.get("names", [str(i) for i in range(nc)])
+
     results_file = save_dir / "results.txt"
     writer = CheckpointWriter()
     final: dict = {}
@@ -485,6 +514,13 @@ def run(args) -> dict:
                 if ladder is not None:
                     sz = ms_rng.choice(ladder)
                     rgb, ir = _resize_u8(rgb, sz), _resize_u8(ir, sz)
+                if draw and plotted < 3:  # the first batches, as trained
+                    plots.plot_batch(rgb.cpu().numpy(),
+                                     targets.cpu().numpy(),
+                                     tmask.cpu().numpy(),
+                                     str(save_dir /
+                                         f"train_batch{plotted}.jpg"), names)
+                    plotted += 1
                 m = step(rgb, ir, targets, tmask,
                          seed=mix_seed(args.seed + 1, state.step))
                 agg += torch.stack([m["box"], m["obj"], m["cls"],
@@ -501,11 +537,19 @@ def run(args) -> dict:
                     eval_model.load_state_dict(pm.gather_state(
                         state.ema_model.state_dict(), pm.tp_dims(model),
                         mesh))
+                panels = []
+                hook = None
+                if (xlog.wandb_run is not None and args.bbox_interval > 0
+                        and epoch % args.bbox_interval == 0):
+                    hook = _with_panels(None, panels, val_loader.ds)
                 res = evaluate(fwd, val_loader, nc, device=device,
                                conf_thres=0.001, iou_thres=0.6,
-                               single_cls=args.single_cls,
+                               single_cls=args.single_cls, per_image=hook,
                                loss_fn=val_loss_fn if args.compute_val_loss
                                else None, shard=shard)
+                if panels:
+                    xlog.log_bbox_debug_images([p[0] for p in panels],
+                                               [p[1] for p in panels], names)
                 fi = fitness(res["mp"], res["mr"], res["map50"], res["map"])
                 line += (f" | P {res['mp']:.3f} R {res['mr']:.3f} "
                          f"mAP50 {res['map50']:.3f} mAP75 "
@@ -518,6 +562,7 @@ def run(args) -> dict:
             if main:
                 with open(results_file, "a") as f:
                     f.write(line + "\n")
+            xlog.log_epoch(epoch, [box, obj, cls], final if fi else {})
             if args.nosave:
                 continue
             if epoch % max(args.ckpt_every, 1) == 0 or \
@@ -528,14 +573,24 @@ def run(args) -> dict:
                 save(save_dir / "best", epoch, best_fitness, writer)
             if args.save_period > 0 and epoch % args.save_period == 0:
                 save(save_dir / f"epoch{epoch}", epoch, best_fitness)
+                xlog.log_model(save_dir / f"epoch{epoch}", epoch, fi,
+                               best=fi >= best_fitness,
+                               save_period=args.save_period)
             if mesh is not None:
                 torch.distributed.barrier()
     finally:
         writer.wait()  # background writes land before the strip
+        xlog.close()
     if not args.nosave and main:
         for tag in ("last", "best"):
             if (save_dir / tag / "state.pt").is_file():
                 strip_checkpoint(save_dir / tag)
+    if draw:
+        try:
+            plots.plot_results(str(results_file),
+                               str(save_dir / "results.png"))
+        except Exception as e:
+            logger.warning(f"results plot failed: {e}")
     out = {k: v for k, v in final.items() if isinstance(v, (int, float))}
     if "val_loss" in final:
         out["val_loss"] = final["val_loss"]
@@ -615,8 +670,17 @@ def evolve(args) -> dict:
             if main:
                 (base_dir / "hyp_evolved.yaml").write_text(
                     dump_flat_yaml(hyp))
-    logger.info("the evolution plot is not ported yet (ROADMAP queue 1, "
-                "item 7): evolve.txt and hyp_evolved.yaml only")
+    if main and evolve_file.exists() and evolve_file.stat().st_size:
+        from ..utils import plots
+
+        if not plots.available():
+            logger.info(f"evolve plot skipped: {plots.MISSING}")
+        else:
+            try:  # fitness against each evolved hyperparameter
+                plots.plot_evolution(str(evolve_file), keys,
+                                     str(base_dir / "evolve.png"))
+            except Exception as e:
+                logger.warning(f"evolve plot failed: {e}")
     return {"best_fitness": best[0] if best else 0.0,
             "hyp": best[1] if best else hyp}
 

@@ -1,6 +1,7 @@
 // Host image geometry of the port's serving and data paths: resize
 // (cv2.INTER_LINEAR and cv2.INTER_AREA), centred pad, affine warp and HSV
-// jitter, on HWC RGB uint8 images.
+// jitter, on HWC RGB uint8 images; and INTER_LINEAR on one-channel float
+// maps (Grad-CAM's overlay).
 //
 // The port's copy of the JAX package's native/image_ops.cpp without its
 // JPEG decoder (jpeg_decode.cpp, built only where libjpeg's headers exist),
@@ -113,6 +114,43 @@ void msod_resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
       int v = ((((r0[i] >> 4) * b0) >> 16) + (((r1[i] >> 4) * b1) >> 16) + 2) >> 2;
       o[i] = (uint8_t)std::min(std::max(v, 0), 255);
     }
+  }
+}
+
+// Bilinear resize of a one-channel float image, cv2.INTER_LINEAR on CV_32F:
+// the same source coordinates as above with float weights, the horizontal
+// pass then the vertical one in float.
+void msod_resize_bilinear_f32(const float* src, int sh, int sw, float* dst,
+                              int dh, int dw) {
+  const double scale_x = 1.0 / ((double)dw / sw);
+  const double scale_y = 1.0 / ((double)dh / sh);
+  std::vector<int> xofs(dw);
+  std::vector<float> xa(2 * dw);
+  for (int x = 0; x < dw; ++x) {
+    float fx = (float)((x + 0.5) * scale_x - 0.5);
+    int sx = (int)std::floor(fx);
+    fx -= sx;
+    if (sx < 0) fx = 0, sx = 0;
+    if (sx >= sw - 1) fx = 0, sx = sw - 1;
+    xofs[x] = sx;
+    xa[2 * x] = 1.f - fx;
+    xa[2 * x + 1] = fx;
+  }
+  std::vector<float> r0(dw), r1(dw);
+  auto hrow = [&](int sy, std::vector<float>& r) {
+    const float* s = src + (size_t)sy * sw;
+    for (int x = 0; x < dw; ++x)
+      r[x] = s[xofs[x]] * xa[2 * x] + s[std::min(xofs[x] + 1, sw - 1)] * xa[2 * x + 1];
+  };
+  for (int y = 0; y < dh; ++y) {
+    float fy = (float)((y + 0.5) * scale_y - 0.5);
+    int sy = (int)std::floor(fy);
+    fy -= sy;
+    const float b0 = 1.f - fy, b1 = fy;
+    hrow(std::min(std::max(sy, 0), sh - 1), r0);
+    hrow(std::min(std::max(sy + 1, 0), sh - 1), r1);
+    float* o = dst + (size_t)y * dw;
+    for (int x = 0; x < dw; ++x) o[x] = r0[x] * b0 + r1[x] * b1;
   }
 }
 

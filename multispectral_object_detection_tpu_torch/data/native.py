@@ -40,12 +40,14 @@ CUDA_HOME = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int)
 _f64p = ctypes.POINTER(ctypes.c_double)
+_f32p = ctypes.POINTER(ctypes.c_float)
 _I, _D = ctypes.c_int, ctypes.c_double
 # library -> {entry point: (argtypes, restype)}
 SIGNATURES = {
     "image_ops": {
         "msod_resize_bilinear": ([_u8p, _I, _I, _u8p, _I, _I], None),
         "msod_resize_area": ([_u8p, _I, _I, _u8p, _I, _I], None),
+        "msod_resize_bilinear_f32": ([_f32p, _I, _I, _f32p, _I, _I], None),
         "msod_pad_center": ([_u8p, _I, _I, _u8p, _I, _I, _I, _I,
                              ctypes.c_uint8], None),
         "msod_warp_affine": ([_u8p, _I, _I, _f64p, _u8p, _I, _I,
@@ -200,6 +202,19 @@ def resize(img: np.ndarray, dh: int, dw: int, area: bool = False) -> np.ndarray:
     lib = library("image_ops")
     fn = lib.msod_resize_area if area else lib.msod_resize_bilinear
     fn(_u8(img), img.shape[0], img.shape[1], _u8(out), dh, dw)
+    return out
+
+
+def resize_f32(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """(H, W) float32 -> (dh, dw) float32, cv2.INTER_LINEAR's float path."""
+    img = np.ascontiguousarray(img, np.float32)
+    if img.ndim != 2 or min(img.shape) < 1 or dh < 1 or dw < 1:
+        raise ValueError(f"expected a non-empty (H, W) map and output size, "
+                         f"got {img.shape} -> ({dh}, {dw})")
+    out = np.empty((dh, dw), np.float32)
+    library("image_ops").msod_resize_bilinear_f32(
+        img.ctypes.data_as(_f32p), img.shape[0], img.shape[1],
+        out.ctypes.data_as(_f32p), dh, dw)
     return out
 
 

@@ -6,8 +6,9 @@ the root hubconf.py's, reference hubconf.py:21-122).
     results = det([rgb_array], [ir_array])
 
 Each takes ``nc``, ``weights`` (a JAX checkpoint directory or a ``.pt``
-state dict), ``img_size`` and ``Detector``'s other keywords. The P6
-family (yolov5s6, ...) waits for its configs (ROADMAP queue 1, item 7).
+state dict), ``img_size`` and ``Detector``'s other keywords. ``custom``
+takes any config name of ``models/configs.get_config`` (the hub zoo
+included) or a DSL dict.
 """
 
 from .hub import Detector, create  # noqa: F401
@@ -26,6 +27,11 @@ yolov5s = _make("yolov5s")
 yolov5m = _make("yolov5m")
 yolov5l = _make("yolov5l")
 yolov5x = _make("yolov5x")
+# the P6 family: 4 detect scales, trained at 1280 px
+yolov5s6 = _make("yolov5s6")
+yolov5m6 = _make("yolov5m6")
+yolov5l6 = _make("yolov5l6")
+yolov5x6 = _make("yolov5x6")
 cft = _make("yolov5l_fusion_transformerx3")
 cft_s = _make("yolov5s_fusion_transformerx3")
 fusion_add = _make("yolov5l_fusion_add")

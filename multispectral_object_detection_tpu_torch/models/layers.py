@@ -1,9 +1,12 @@
 """Building blocks of the two-stream YOLOv5 graph, NCHW in channels_last.
 
 Counterparts of the modules of multispectral_object_detection_tpu/models/
-layers.py that the main path runs. Parameter names follow the reference
-torch modules (``conv``, ``bn``, ``cv1``..``cv3``, ``m.{k}``), so reference
-state dicts load as they are.
+layers.py: the main path's blocks, then the hub zoo's (BottleneckCSP,
+C3TR and its transformer, Ghost blocks, MixConv2d, CrossConv, Contract,
+Expand, MaxPool2d, ZeroPad2d, Sum, Classify, dwconv). Parameter names
+follow the reference torch modules (``conv``, ``bn``, ``cv1``..``cv4``,
+``m.{k}``, ``tr.{k}``, ``ma.in_proj_weight``), so reference state dicts
+load as they are.
 
 Numerics as in the JAX modules: convolutions run in the input's dtype
 (parameters are cast at use, a no-op once the model is cast), BatchNorm in
@@ -31,13 +34,16 @@ statistics alike.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention import multi_head_attention
 from ..ops.c3_bottleneck import c3_bottleneck
 from .parser import autopad
 from .quantize import conv_weight
@@ -285,3 +291,294 @@ class Add2(nn.Module):
 
     def forward(self, xs):
         return xs[0] + xs[1][self.index]
+
+
+# ---------------------------------------------------------------- hub zoo
+# The blocks of the configs off the main path (yolov3, yolov5-fpn/-panet,
+# -p2/-p6/-p7, yolov5s-transformer) and the rest of the JAX package's zoo.
+
+
+def linear_cast(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` in x's dtype (its parameters cast at use)."""
+    return F.linear(x, lin.weight.to(x.dtype),
+                    None if lin.bias is None else lin.bias.to(x.dtype))
+
+
+def conv_cast(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A bare ``nn.Conv2d`` in x's dtype (dequantized if int8)."""
+    return F.conv2d(x, conv_weight(conv, x.dtype),
+                    None if conv.bias is None else conv.bias.to(x.dtype),
+                    conv.stride, conv.padding, conv.dilation, conv.groups)
+
+
+def bare_batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d,
+                    training: bool) -> torch.Tensor:
+    """A BatchNorm without a conv beside it (BottleneckCSP, MixConv2d,
+    FReLU), in fp32: batch statistics in training (``batch_norm_train``,
+    not synchronised over data ranks), running statistics otherwise.
+    ``fuse_conv_bn`` leaves it live, as the JAX package's fold does."""
+    y = y.float()
+    if training:
+        return batch_norm_train(y, bn)
+    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+def dwconv(c1: int, c2: int, k: int = 1, s: int = 1,
+           act: bool = True) -> ConvBnAct:
+    """Depthwise-ish conv: a grouped ConvBnAct with g = gcd(c1, c2)."""
+    return ConvBnAct(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+
+
+class BottleneckCSP(nn.Module):
+    """Legacy CSP block: cv1 -> bottlenecks -> bare 1x1 ``cv3``, beside a
+    bare 1x1 ``cv2``; the concat through a bare BatchNorm (fp32, live after
+    ``fuse_conv_bn``) and LeakyReLU(0.1), then ``cv4``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBnAct(2 * c_, c2, 1, 1)
+        self.bn = nn.BatchNorm2d(2 * c_, eps=1e-3, momentum=0.03)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        y1 = conv_cast(self.m(self.cv1(x)), self.cv3)
+        y = torch.cat([y1, conv_cast(x, self.cv2)], 1)
+        y = bare_batch_norm(y, self.bn, self.training)
+        return self.cv4(F.leaky_relu(y, 0.1).to(x.dtype))
+
+
+class Contract(nn.Module):
+    """Fold space into channels: (B, C, H, W) -> (B, C*g*g, H/g, W/g),
+    channel order (row offset, column offset, C)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, c * s * s, h // s, w // s)
+
+
+class Expand(nn.Module):
+    """Unfold channels into space, the inverse of ``Contract``:
+    (B, C, H, W) -> (B, C/g^2, H*g, W*g)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, s, s, c // (s * s), h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(b, c // (s * s), h * s, w * s)
+
+
+class MaxPool2d(nn.Module):
+    """Max pool with floor-mode windows and symmetric padding (yolov3-tiny's
+    ``nn.MaxPool2d`` rows)."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, s, p
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """Zero pad by (left, right, top, bottom), torch's argument order."""
+
+    def __init__(self, padding):
+        super().__init__()
+        self.padding = tuple(padding)
+
+    def forward(self, x):
+        return F.pad(x, self.padding)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a ConvBnAct to c2/2 channels and a 5x5 depthwise
+    ConvBnAct of it, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBnAct(c1, c_, k, s, None, g, act)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, None, c_, act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck with the reference's ``conv.{0,1,2}`` and
+    ``shortcut.{0,1}`` names (the JAX package's g1, its first dwconv, g2;
+    its second dwconv and sc); the depthwise convs only at stride 2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            dwconv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = nn.Sequential(
+            dwconv(c1, c1, k, s, act=False),
+            ConvBnAct(c1, c2, 1, 1, act=False)) if s == 2 else nn.Identity()
+
+    def forward(self, x):
+        return self.conv(x) + self.shortcut(x)
+
+
+class TransformerLayer(nn.Module):
+    """Transformer layer without LayerNorm (the C3TR core): ``q``/``k``/``v``
+    Linears without bias, then ``nn.MultiheadAttention``'s packed
+    in-projection and out-projection around ops/attention.py's attention
+    (fp32 logits), a residual, and ``fc2(fc1(x))`` with a residual. ``ma``
+    holds the parameters under nn.MultiheadAttention's names; the
+    arithmetic is the JAX package's, in x's dtype."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = nn.MultiheadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, x):
+        dt = x.dtype
+        w, b = self.ma.in_proj_weight.to(dt), self.ma.in_proj_bias.to(dt)
+        q, k, v = (F.linear(linear_cast(x, lin), w_i, b_i) for lin, w_i, b_i in
+                   zip((self.q, self.k, self.v), w.chunk(3), b.chunk(3)))
+        a = multi_head_attention(q, k, v, self.num_heads)
+        x = x + linear_cast(a, self.ma.out_proj)
+        return x + linear_cast(linear_cast(x, self.fc1), self.fc2)
+
+
+class TransformerBlock2D(nn.Module):
+    """ViT-style block over a map: an optional ConvBnAct to c2, the H*W
+    tokens (row-major) plus a learned linear position embedding
+    (``linear``), then ``num_layers`` TransformerLayers (``tr.{i}``)."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int):
+        super().__init__()
+        self.conv = ConvBnAct(c1, c2, 1, 1) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(*(TransformerLayer(c2, num_heads)
+                                  for _ in range(num_layers)))
+        self.c2 = c2
+
+    def forward(self, x):
+        if self.conv is not None:
+            x = self.conv(x)
+        b, c, h, w = x.shape
+        p = x.flatten(2).transpose(1, 2)
+        y = self.tr(p + linear_cast(p, self.linear))
+        return y.transpose(1, 2).reshape(b, c, h, w)
+
+
+class C3TR(nn.Module):
+    """C3 with a TransformerBlock2D (4 heads, n layers) as its core."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c1, c_, 1, 1)
+        self.cv3 = ConvBnAct(2 * c_, c2, 1)
+        self.m = TransformerBlock2D(c_, c_, 4, n)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class MixConv2d(nn.Module):
+    """Mixed kernel sizes: c2 split equally over the kernels ``k``, bare
+    convs ``m.{i}`` concatenated, a bare BatchNorm (fp32, live after
+    ``fuse_conv_bn``) and SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (1, 3),
+                 s: int = 1):
+        super().__init__()
+        groups = len(k)
+        i = np.floor(np.linspace(0, groups - 1e-6, c2))
+        c_ = [int((i == g).sum()) for g in range(groups)]
+        self.m = nn.ModuleList(nn.Conv2d(c1, c, kk, s, kk // 2, bias=False)
+                               for kk, c in zip(k, c_))
+        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+
+    def forward(self, x):
+        y = torch.cat([conv_cast(x, m) for m in self.m], 1)
+        y = bare_batch_norm(y, self.bn, self.training)
+        return F.silu(y).to(x.dtype)
+
+
+class Sum(nn.Module):
+    """Sum of n inputs; with ``weight`` the inputs after the first are
+    scaled by 2 * sigmoid(w), w initialised to -(1..n-1)/2."""
+
+    def __init__(self, n: int, weight: bool = False):
+        super().__init__()
+        self.n = n
+        self.weight = weight
+        if weight:
+            self.w = nn.Parameter(-torch.arange(1.0, n) / 2)
+
+    def forward(self, xs):
+        y = xs[0]
+        w = torch.sigmoid(self.w.float()) * 2 if self.weight else None
+        for i in range(self.n - 1):
+            y = y + (xs[i + 1] if w is None else
+                     xs[i + 1] * w[i].to(xs[i + 1].dtype))
+        return y
+
+
+class Classify(nn.Module):
+    """Classification head: global average pool (of each input, then
+    concatenated), a 1x1 conv with bias, flattened to (B, c2)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, 1, 1, bias=True)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            z = torch.cat([y.mean((2, 3), keepdim=True) for y in x], 1)
+        else:
+            z = x.mean((2, 3), keepdim=True)
+        return conv_cast(z, self.conv).flatten(1)
+
+
+class CrossConv(nn.Module):
+    """A 1xk then kx1 ConvBnAct pair with an optional residual. The
+    reference's names ``cv1``/``cv2`` (the JAX package's ``cv1_conv``,
+    ``cv1_bn``, ...); both pairs fold under ``fuse_conv_bn``."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1,
+                 e: float = 1.0, shortcut: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, (1, k), (1, s))
+        self.cv2 = ConvBnAct(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y

@@ -15,6 +15,7 @@ lies inside them, as the JAX package's ``nn.remat`` per block does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -49,22 +50,48 @@ def checkpoint_once(fn, *args, context_fn=None):
 
 
 def _build_module(node: Node, use_c3_kernel: bool = False) -> nn.Module:
+    """One graph row's module (a repeated row builds one per repeat)."""
     k, a = node.kind, node.args
+
+    def arg(i, default):
+        return a[i] if len(a) > i else default
+
     if k == "Conv":
-        return L.ConvBnAct(a[0], a[1], k=a[2] if len(a) > 2 else 1,
-                           s=a[3] if len(a) > 3 else 1,
-                           p=a[4] if len(a) > 4 else None,
-                           g=a[5] if len(a) > 5 else 1)
+        return L.ConvBnAct(a[0], a[1], k=arg(2, 1), s=arg(3, 1),
+                           p=arg(4, None), g=arg(5, 1))
+    if k == "DWConv":
+        return L.dwconv(a[0], a[1], arg(2, 1), arg(3, 1))
     if k == "Focus":
-        return L.Focus(a[0], a[1], k=a[2] if len(a) > 2 else 1,
-                       s=a[3] if len(a) > 3 else 1)
+        return L.Focus(a[0], a[1], k=arg(2, 1), s=arg(3, 1))
     if k == "Bottleneck":
-        return L.Bottleneck(a[0], a[1], shortcut=a[2] if len(a) > 2 else True)
+        return L.Bottleneck(a[0], a[1], shortcut=arg(2, True))
+    if k == "BottleneckCSP":
+        return L.BottleneckCSP(a[0], a[1], n=a[2], shortcut=arg(3, True))
     if k == "C3":
-        return L.C3(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True,
+        return L.C3(a[0], a[1], n=a[2], shortcut=arg(3, True),
                     use_c3_kernel=use_c3_kernel)
+    if k == "C3TR":
+        return L.C3TR(a[0], a[1], n=a[2], shortcut=arg(3, True))
+    if k == "MixConv2d":
+        return L.MixConv2d(a[0], a[1], k=tuple(arg(2, (1, 3))), s=arg(3, 1))
+    if k == "Sum":
+        return L.Sum(n=a[0], weight=arg(1, False))
+    if k == "Classify":
+        return L.Classify(a[0], a[1])
+    if k == "TransformerBlock":
+        return L.TransformerBlock2D(a[0], a[1], a[2], a[3])
     if k == "SPP":
-        return L.SPP(a[0], a[1], k=tuple(a[2]) if len(a) > 2 else (5, 9, 13))
+        return L.SPP(a[0], a[1], k=tuple(arg(2, (5, 9, 13))))
+    if k == "GhostConv":
+        return L.GhostConv(a[0], a[1], k=arg(2, 1), s=arg(3, 1))
+    if k == "GhostBottleneck":
+        return L.GhostBottleneck(a[0], a[1], k=arg(2, 3), s=arg(3, 1))
+    if k == "CrossConv":
+        return L.CrossConv(a[0], a[1], k=arg(2, 3), s=arg(3, 1))
+    if k == "Contract":
+        return L.Contract(gain=arg(0, 2))
+    if k == "Expand":
+        return L.Expand(gain=arg(0, 2))
     if k == "Concat":
         return L.Concat()
     if k == "Add":
@@ -75,9 +102,13 @@ def _build_module(node: Node, use_c3_kernel: bool = False) -> nn.Module:
         return CrossModalFusion(d_model=a[0])
     if k == "Upsample":
         # reference rows: [None, 2, 'nearest']
-        return L.Upsample(scale=int(a[1]) if len(a) > 1 else 2,
-                          mode=str(a[2]) if len(a) > 2 else "nearest")
-    raise ValueError(f"module kind {k!r} is not ported yet")
+        return L.Upsample(scale=int(arg(1, 2)), mode=str(arg(2, "nearest")))
+    if k == "MaxPool2d":
+        # torch nn.MaxPool2d rows: [k, s, pad] (yolov3-tiny)
+        return L.MaxPool2d(k=a[0], s=arg(1, a[0]), p=arg(2, 0))
+    if k == "ZeroPad2d":
+        return L.ZeroPad2d(padding=tuple(a[0]))
+    raise ValueError(f"no module for kind {k!r}")
 
 
 class DetectionModel(nn.Module):
@@ -154,6 +185,31 @@ class DetectionModel(nn.Module):
         return self
 
 
+@contextlib.contextmanager
+def plain_kernels(model: nn.Module, stack_fn=None):
+    """Within: the model's CFT stages and fused C3 bottlenecks run their
+    kernels' plain PyTorch twins (visible to FlopCounterMode and traceable
+    by torch.export, which cannot see the ctypes-bound kernels), restored
+    on exit. ``stack_fn`` replaces the CFT stack's twin (Grad-CAM passes
+    the differentiable ``cft_stack_train``)."""
+    from ..ops.c3_bottleneck import c3_bottleneck_plain
+    from ..ops.cft_stack import fused_cft_stack_plain
+
+    saved = []
+    for m in model.modules():
+        if isinstance(m, CrossModalFusion):
+            saved.append((m, "stack_fn", m.stack_fn))
+            m.stack_fn = stack_fn or fused_cft_stack_plain
+        elif isinstance(m, L.Bottleneck):
+            saved.append((m, "c3_fn", m.c3_fn))
+            m.c3_fn = c3_bottleneck_plain
+    try:
+        yield model
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+
+
 def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
                 dtype: torch.dtype = torch.float32, device=None,
                 use_c3_kernel: bool = False) -> DetectionModel:
@@ -169,9 +225,14 @@ def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``: convs normal(0, 1/fan_in), Linear
-    normal(0, 0.02) with zero bias, norms at identity, zero position
-    embeddings and the Detect prior bias (the JAX package's initialisers)."""
+    """Random weights from ``generator``, as the JAX package initialises:
+    convs normal(0, 1/fan_in) (flax's default); the CFT stages' Linears
+    normal(0, 0.02) with zero bias, their position embeddings zero; the
+    zoo's Linears normal(0, 1/fan_in) with zero bias, the packed attention
+    in-projection xavier-uniform with zero bias; ``Sum`` weights
+    -(1..n-1)/2; norms at identity; the Detect prior bias."""
+    cft = {id(m) for f in model.modules() if isinstance(f, CrossModalFusion)
+           for m in f.modules()}
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
@@ -179,12 +240,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
-            m.weight.normal_(0.0, 0.02, generator=generator)
-            m.bias.zero_()
+            std = 0.02 if id(m) in cft else 1.0 / math.sqrt(m.in_features)
+            m.weight.normal_(0.0, std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.MultiheadAttention):
+            c3, c = m.in_proj_weight.shape  # (3c, c): fans c and 3c
+            bound = math.sqrt(6.0 / (c + c3))
+            m.in_proj_weight.uniform_(-bound, bound, generator=generator)
+            m.in_proj_bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()  # BatchNorm: running stats too
         elif isinstance(m, CrossModalFusion):
             m.pos_emb.zero_()
+        elif isinstance(m, L.Sum) and m.weight:
+            m.w.copy_(-torch.arange(1.0, m.n) / 2)
     for m in model.modules():
         if isinstance(m, Detect):
             m.init_prior_bias()
@@ -198,7 +268,9 @@ def fuse_conv_bn(model: nn.Module, eps: Optional[float] = None) -> nn.Module:
         weight' = weight * gamma / sqrt(var + eps)   (per output channel)
         bias'   = beta - mean * gamma / sqrt(var + eps)
 
-    computed in fp32 (eps defaults to the BatchNorm's own, 1e-3)."""
+    computed in fp32 (eps defaults to the BatchNorm's own, 1e-3). A bare
+    BatchNorm without a conv of its own (BottleneckCSP's, MixConv2d's)
+    stays live, as in the JAX package's fold."""
     for m in model.modules():
         if isinstance(m, L.ConvBnAct) and m.bn is not None:
             bn, conv = m.bn, m.conv

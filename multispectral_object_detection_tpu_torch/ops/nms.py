@@ -10,7 +10,8 @@ Counterpart of multispectral_object_detection_tpu/ops/nms.py:
   order, as ``jax.lax.top_k`` does (``torch.topk`` orders ties otherwise);
 - class-offset trick (boxes + cls * 4096) for per-class NMS in one pass;
 - greedy argmax-and-suppress, a loop over iterations vectorised across the
-  batch, ties to the lower index, stopping once no image has a candidate;
+  batch, ties to the lower index, stopping once no image has a candidate
+  (or, ``fixed_trip``, after ``max_det`` iterations with no host read);
 - optional weighted merge: each kept box becomes the score-weighted mean
   of the candidates that overlap it above the IoU threshold (in
   class-offset space), for 1 < candidates < 3000 per image; ``redundant``
@@ -49,16 +50,32 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
-              max_det: int):
+              max_det: int, fixed_trip: bool = False):
     """Greedy NMS over (B, K, 4)/(B, K) -> kept indices (B, max_det),
     validity (B, max_det) and the number of iterations run.
 
     An iteration after an image's last candidate changes nothing for it,
     so the loop may check for its early exit only every few iterations
-    (each check is a device-to-host sync)."""
+    (each check is a device-to-host sync). With ``fixed_trip`` it runs all
+    ``max_det`` iterations and reads nothing back to the host (a graph
+    that ``torch.export`` can trace), with the same results: the IoU of
+    every pair of candidates is computed once (B, K, K) and each iteration
+    reads the row of its pick, and since an image that has run out of
+    candidates keeps none after, iteration t fills output slot t."""
     B = scores.shape[0]
     rows = torch.arange(B, device=scores.device)
     work = scores.clone()
+    if fixed_trip:
+        iou_all = pairwise_iou(boxes, boxes)
+        picks, kept = [], []
+        for _ in range(max_det):
+            v, i = work.max(dim=1)  # first max wins ties
+            keep = v > _NEG / 2
+            work = torch.where(iou_all[rows, i] > iou_thres, _NEG, work)
+            work = work.scatter(1, i[:, None], _NEG)
+            picks.append(torch.where(keep, i, 0))
+            kept.append(keep)
+        return torch.stack(picks, 1), torch.stack(kept, 1), max_det
     idxs = torch.zeros((B, max_det), dtype=torch.long, device=scores.device)
     vals = torch.zeros((B, max_det), dtype=torch.bool, device=scores.device)
     n = torch.zeros((B,), dtype=torch.long, device=scores.device)
@@ -123,7 +140,8 @@ def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
                 max_det: int = 300, top_k: int = 4096,
                 class_mask=None, labels=None, labels_mask=None,
                 merge: bool = False, redundant: bool = True,
-                stats: Optional[dict] = None) -> Detections:
+                stats: Optional[dict] = None,
+                fixed_trip: bool = False) -> Detections:
     """Batched NMS on decoded predictions (B, N, 5+nc) [xywh, obj, cls...].
 
     class_mask: optional (nc,) bool, keep only these classes.
@@ -134,7 +152,9 @@ def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
     stats: optional dict to which the candidates past the confidence gate
     (summed over the batch, a device tensor: no host sync) and the
     suppression iterations run are added, under "candidates" and
-    "iterations"."""
+    "iterations".
+    fixed_trip: run all ``max_det`` suppression iterations without the
+    early exit's host reads (the exported graph's form; same results)."""
     pred = pred.float()
     if nc is None:
         nc = pred.shape[-1] - 5
@@ -180,7 +200,8 @@ def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
     scores = torch.where(scores > 0.0, scores, _NEG)
 
     shifted = bxs if agnostic else bxs + (cls.float() * _MAX_WH)[..., None]
-    idxs, vals, iters = _suppress(shifted, scores, iou_thres, max_det)
+    idxs, vals, iters = _suppress(shifted, scores, iou_thres, max_det,
+                                  fixed_trip)
     if stats is not None:
         stats["candidates"] = stats.get("candidates", 0) + (scores > 0).sum()
         stats["iterations"] = stats.get("iterations", 0) + iters

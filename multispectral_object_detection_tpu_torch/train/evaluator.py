@@ -39,8 +39,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
              single_cls: bool = False, max_det: int = 300,
              top_k: int = 30000, hybrid: bool = False,
              per_image: Callable = None,
-             confusion=None, loss_fn: Callable = None,
-             shard=None) -> Dict[str, object]:
+             confusion=None, curves: bool = False,
+             loss_fn: Callable = None, shard=None) -> Dict[str, object]:
     """Run the eval protocol; returns the ``summarize_stats`` dict plus
     ``seen``, ``lamr`` (nc = 1) and the per-image times ``t_infer_ms``
     (upload + forward + decode), ``t_nms_ms`` and ``t_match_ms`` (host
@@ -57,6 +57,7 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         dataset position, ``batch["index"]`` (batches without it are taken
         to be in dataset order).
     confusion: a metrics.ConfusionMatrix accumulated over all images.
+    curves: add ``curves``, the PR/P/R/F1 curves (``summarize_stats``).
     loss_fn: train/loss.DetectionLoss on the forward's raw outputs; adds
         ``val_loss`` [box, obj, cls], the mean over batches.
     shard: parallel/mesh.EvalShard of a data-parallel eval."""
@@ -145,7 +146,7 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
         t_match += time.perf_counter() - t2
 
     t3 = time.perf_counter()
-    out = summarize_stats(stats, nc)
+    out = summarize_stats(stats, nc, curves=curves)
     if nc == 1 and stats:
         tp50 = np.concatenate([s[0][:, 0] for s in stats])
         conf = np.concatenate([s[1] for s in stats])

@@ -1,7 +1,8 @@
 """Helpers of the port's entry points: device selection, seeds, image
 sizes, run directories and the newest ``last`` checkpoint, class and image
 weights, COCO class ids, the native-space box rescale, box drawing, image
-writing and detection crops.
+writing and detection crops; file and dataset checks, coloured log text,
+importable packages and the checkout's git status.
 
 The port's own copies of the framework-free helpers of
 multispectral_object_detection_tpu/utils/general.py and of
@@ -225,3 +226,113 @@ def save_one_box(xyxy, im: np.ndarray, file="image.jpg", gain: float = 1.02,
         write_image(Path(file).with_suffix(".jpg"),
                     crop[..., ::-1] if bgr else crop)
     return crop
+
+
+def colorstr(*inputs):
+    """ANSI-colored string (general.py:225)."""
+    *args, string = inputs if len(inputs) > 1 else ("blue", "bold", inputs[0])
+    colors = {
+        "black": "\033[30m", "red": "\033[31m", "green": "\033[32m",
+        "yellow": "\033[33m", "blue": "\033[34m", "magenta": "\033[35m",
+        "cyan": "\033[36m", "white": "\033[37m", "bright_red": "\033[91m",
+        "bright_green": "\033[92m", "bright_yellow": "\033[93m",
+        "end": "\033[0m", "bold": "\033[1m", "underline": "\033[4m",
+    }
+    return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
+
+
+def check_file(file: str) -> str:
+    """Return `file` if it exists, else search for it recursively
+    (general.py:152-161)."""
+    if file == "" or Path(file).is_file():
+        return file
+    files = glob.glob("./**/" + str(file), recursive=True)
+    assert len(files), f"File Not Found: {file}"
+    assert len(files) == 1, \
+        f"Multiple files match '{file}', specify exact path: {files}"
+    return files[0]
+
+
+def check_dataset(data: dict, autodownload: bool = True):
+    """Verify the dataset's val paths exist; attempt the YAML's `download`
+    recipe if not (general.py:163-183). Handles both the single-stream
+    (`val`) and two-stream (`val_rgb`/`val_ir`) key planes.
+
+    Without network access the download fails and the error names the
+    missing paths and the recipe.
+    """
+    import subprocess
+
+    vals = []
+    for key in ("val", "val_rgb", "val_ir"):
+        v = data.get(key)
+        if v:
+            vals += v if isinstance(v, list) else [v]
+    if not vals:
+        return
+    missing = [str(Path(x).resolve()) for x in vals
+               if not Path(x).exists()]
+    if not missing:
+        return
+    logging.warning(f"Dataset not found, nonexistent paths: {missing}")
+    s = data.get("download")
+    if not (s and autodownload):
+        raise FileNotFoundError(f"Dataset not found: {missing}")
+    if str(s).startswith("http") and str(s).endswith(".zip"):
+        import urllib.request
+
+        f = Path(str(s)).name
+        logging.info(f"Downloading {s} ...")
+        urllib.request.urlretrieve(str(s), f)
+        r = subprocess.run(["unzip", "-q", f, "-d", ".."]).returncode
+        Path(f).unlink(missing_ok=True)
+    elif str(s).startswith("bash "):
+        logging.info(f"Running {s} ...")
+        r = subprocess.run(str(s), shell=True).returncode
+    else:
+        exec(str(s))
+        r = 0
+    if r != 0:
+        raise RuntimeError(f"dataset autodownload failed (rc={r})")
+    still = [x for x in missing if not Path(x).exists()]
+    if still:
+        raise FileNotFoundError(f"Dataset still missing after download: "
+                                f"{still}")
+
+
+def check_requirements(requirements=("torch", "numpy"), exclude=()):
+    """Report which of ``requirements`` do not import (general.py:101-127);
+    the reference installs them with pip, this never installs anything."""
+    import importlib
+
+    missing = []
+    for r in requirements:
+        if r in exclude:
+            continue
+        try:
+            importlib.import_module(r)
+        except ImportError:
+            missing.append(r)
+    if missing:
+        logging.warning(f"check_requirements: missing packages {missing} "
+                        f"(no auto-install in this environment)")
+    return missing
+
+
+def check_git_status(repo_dir: str = "."):
+    """Warn if the local git checkout is behind its remote, as the last
+    fetch recorded it (general.py:79-98); reads local status only."""
+    import subprocess
+
+    try:
+        out = subprocess.run(["git", "-C", str(repo_dir), "status",
+                              "--porcelain", "-b"], capture_output=True,
+                             text=True, timeout=10)
+        head = out.stdout.splitlines()[0] if out.stdout else ""
+        if "behind" in head:
+            logging.warning(f"check_git_status: {head} — "
+                            f"`git pull` to update")
+        return head
+    except Exception as e:  # no git / not a repo
+        logging.info(f"check_git_status skipped: {e}")
+        return ""

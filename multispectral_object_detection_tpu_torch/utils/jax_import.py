@@ -5,11 +5,20 @@ The inverse of multispectral_object_detection_tpu/utils/torch_import.py
 ``convert_state_dict``. It reads plain nested dicts of arrays (numpy, or
 anything ``np.asarray`` takes), so it needs neither JAX nor flax:
 
-- ``blocks_{i}/…`` -> ``model.{i}.…``, ``m{k}`` -> ``m.{k}``;
+- ``blocks_{i}/…`` -> ``model.{i}.…`` (a repeated row's ``blocks_{i}_{j}``
+  -> ``model.{i}.{j}``), ``m{k}`` -> ``m.{k}``;
 - conv kernels HWIO (kh, kw, I, O) -> OIHW (O, I, kh, kw); dense kernels
   (in, out) -> (out, in);
 - BatchNorm ``scale``/``bias`` and batch stats ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``;
+- the zoo: ``tr{k}`` -> ``tr.{k}``, a TransformerBlock's ``pos`` ->
+  ``linear``, the packed attention's ``in_proj_w`` (c, 3c) ->
+  ``ma.in_proj_weight`` (3c, c), ``in_proj_b`` and ``out`` ->
+  ``ma.in_proj_bias`` and ``ma.out_proj``; BottleneckCSP's bare
+  ``cv2``/``cv3`` kernels and ``bn``, MixConv2d's ``m{i}`` and Sum's ``w``
+  keep their names; GhostBottleneck's ``g1``, ``ConvBnAct_0``, ``g2``,
+  ``ConvBnAct_1``, ``sc`` -> ``conv.0``-``conv.2``, ``shortcut.0``,
+  ``shortcut.1``; CrossConv's ``cv1_conv`` -> ``cv1.conv``;
 - the stacked CFT parameters (``qkv_w`` (L, C, 3C) …) -> the reference GPT
   keys per layer: ``trans_blocks.{j}.sa.que_proj/key_proj/val_proj`` from
   the three (C, C) column blocks of ``qkv_w``, transposed.
@@ -22,7 +31,7 @@ from typing import Dict
 
 import numpy as np
 
-_BLOCK = re.compile(r"^blocks_(\d+)$")
+_BLOCK = re.compile(r"^blocks_(\d+)(?:_(\d+))?$")
 _INDEXED = re.compile(r"^m(\d+)$")
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
@@ -51,10 +60,35 @@ def _gpt(prefix: str, p: dict) -> Dict[str, np.ndarray]:
     return out
 
 
+# the JAX package's GhostBottleneck names (flax numbers its unnamed
+# dwconvs) -> the reference's Sequential positions
+_GHOST = {"g1": "conv.0", "ConvBnAct_0": "conv.1", "g2": "conv.2",
+          "ConvBnAct_1": "shortcut.0", "sc": "shortcut.1"}
+_INDEXED_TR = re.compile(r"^tr(\d+)$")
+_CROSS = re.compile(r"^(cv\d)_(conv|bn)$")
+
+
+def _child_name(k: str, tree: dict) -> str:
+    """A JAX submodule or leaf name -> the reference's, in its parent."""
+    for pattern, base in ((_INDEXED, "m"), (_INDEXED_TR, "tr")):
+        m = pattern.match(k)
+        if m:
+            return f"{base}.{m.group(1)}"
+    if "g1" in tree and k in _GHOST:
+        return _GHOST[k]
+    m = _CROSS.match(k)
+    if m:  # CrossConv: cv1_conv -> cv1.conv
+        return f"{m.group(1)}.{m.group(2)}"
+    if "in_proj_w" in tree and k == "out":  # nn.MultiheadAttention
+        return "ma.out_proj"
+    if k == "pos" and any(_INDEXED_TR.match(j) for j in tree):
+        return "linear"  # TransformerBlock's position embedding
+    return k
+
+
 def _walk(prefix: str, tree: dict, out: Dict[str, np.ndarray]) -> None:
     for k, v in tree.items():
-        m = _INDEXED.match(k)
-        name = f"{prefix}.m.{m.group(1)}" if m else f"{prefix}.{k}"
+        name = f"{prefix}.{_child_name(k, tree)}"
         if isinstance(v, dict):
             _walk(name, v, out)
             continue
@@ -65,6 +99,12 @@ def _walk(prefix: str, tree: dict, out: Dict[str, np.ndarray]) -> None:
                 v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T)
         elif k in _LEAF:
             out[f"{prefix}.{_LEAF[k]}"] = v
+        elif k == "in_proj_w":  # stored (c, 3c), torch's x @ W.T form
+            out[f"{prefix}.ma.in_proj_weight"] = np.ascontiguousarray(v.T)
+        elif k == "in_proj_b":
+            out[f"{prefix}.ma.in_proj_bias"] = v
+        elif k == "w":  # Sum's weights
+            out[name] = v
         else:
             raise KeyError(f"no reference name for parameter {name!r}")
 
@@ -79,7 +119,9 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None,
             m = _BLOCK.match(block)
             if m is None:
                 raise KeyError(f"not a graph block: {block!r}")
-            name = f"{prefix}{m.group(1)}"
+            # a repeated row's modules are blocks_{i}_{j} in the JAX model
+            name = f"{prefix}{m.group(1)}" + (
+                f".{m.group(2)}" if m.group(2) is not None else "")
             if "qkv_w" in sub:
                 out.update(_gpt(name, sub))
             else:

@@ -324,3 +324,66 @@ def jax_train_fns(x64: bool = False):
                           ema_updates=jnp.zeros((), jnp.int32))
 
     return dict(step=step, state=state, wd=hyp.weight_decay * 64 * 1 / 64)
+
+
+class FakeArtifact:
+    """A stand-in for ``wandb.Artifact`` that records what is added."""
+
+    def __init__(self, name, type=None, metadata=None):
+        self.name, self.type, self.metadata = name, type, metadata
+        self.refs, self.dirs, self.aliases = [], [], []
+
+    def add_reference(self, uri, name=None):
+        self.refs.append((uri, name))
+
+    def add_dir(self, d):
+        self.dirs.append(d)
+
+    def download(self, root=None):
+        return str(root)
+
+
+class FakeRun:
+    """A stand-in for a W&B run: records logged payloads and artifacts."""
+
+    def __init__(self):
+        self.id = "fake123"
+        self.logged, self.artifacts, self.used = [], [], []
+        self.finished = False
+
+    def log(self, payload, step=None):
+        self.logged.append((payload, step))
+
+    def log_artifact(self, art, aliases=None):
+        art.aliases = aliases or []
+        self.artifacts.append(art)
+
+    def use_artifact(self, path):
+        self.used.append(path)
+        return FakeArtifact(path)
+
+    def finish(self):
+        self.finished = True
+
+
+def install_fake_wandb(monkeypatch) -> FakeRun:
+    """A fake ``wandb`` module in ``sys.modules`` for the test; returns the
+    run its ``init`` hands out (``init``'s keywords in ``run.init_kw``)."""
+    import sys
+    import types
+
+    run = FakeRun()
+    mod = types.ModuleType("wandb")
+
+    def init(**kw):
+        run.init_kw = kw
+        return run
+
+    mod.init = init
+    mod.Artifact = FakeArtifact
+    mod.Image = lambda img, boxes=None: ("image", np.asarray(img).shape,
+                                         boxes)
+    mod.Api = lambda: types.SimpleNamespace(
+        artifact=lambda p: FakeArtifact(p))
+    monkeypatch.setitem(sys.modules, "wandb", mod)
+    return run

@@ -7,9 +7,11 @@ on the inputs / 255), and the two test CLIs on one JAX checkpoint
 directory and one synthetic PNG set: mAP50 and mAP within 0.1 pt (the
 eval-parity bar of PARITY_synthetic.md), default and ``--save-hybrid``,
 and the ``--save-txt --save-conf`` files line for line to 1e-4, and
-``--compute-loss``'s val loss within 1e-5 relative. Also the CLI's guards:
-no GPU without ``--device cpu``, the flags of later slices (one of the
-train CLI's among them), and the single-checkpoint flags."""
+``--compute-loss``'s val loss within 1e-5 relative; ``--plots`` (the
+confusion matrix and curves; without matplotlib an exit before any work)
+and ``--wandb`` (a fake wandb module; without one a warning). Also the
+CLI's guards: no GPU without ``--device cpu`` and the single-checkpoint
+flags."""
 
 import json
 from pathlib import Path
@@ -288,11 +290,51 @@ def test_cli_without_gpu_and_without_device_cpu_prints_no_metric(
     assert out.out == "" and "mAP" not in out.err
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--plots"], "item 7"), (["--wandb"], "item 7")])
-def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
-        _port(ws, ["--weights", ws["ckpts"][0]] + flag)
+def test_plots_write_the_confusion_matrix_and_the_curves(ws):
+    # --save-hybrid: the ground truth among the candidates gives curves
+    res = _port(ws, _common(ws, "plots") + ["--weights", ws["ckpts"][0],
+                                            "--plots", "--save-hybrid"],
+                data=ws["small"])
+    run = ws["root"] / "runs" / "plots"
+    for f in ("confusion_matrix.png", "PR_curve.png", "F1_curve.png",
+              "P_curve.png", "R_curve.png"):
+        assert (run / f).stat().st_size > 0, f
+    cv = res["curves"]
+    assert cv["px"].shape == (1000,) and cv["f1"].shape[1] == 1000
+
+
+def test_plots_without_matplotlib_exit_before_any_work(ws, monkeypatch):
+    from multispectral_object_detection_tpu_torch.utils import plots
+
+    monkeypatch.setattr(plots, "available", lambda: False)
+    with pytest.raises(SystemExit, match="--plots needs matplotlib"):
+        _port(ws, _common(ws, "noplots") + ["--weights", "missing.pt",
+                                            "--plots"])
+    assert not (ws["root"] / "runs" / "noplots").exists()
+
+
+def test_wandb_logs_the_metrics_and_16_panels(ws, monkeypatch):
+    from tests._torch_port import install_fake_wandb
+
+    run = install_fake_wandb(monkeypatch)
+    res = _port(ws, _common(ws, "wandb") + ["--weights", ws["ckpts"][0],
+                                            "--wandb", "--entity", "me"])
+    assert run.init_kw["entity"] == "me" and run.finished
+    panels = [p for p, _ in run.logged if "Bounding Box Debugger/Images" in p]
+    assert len(panels) == 1 and len(panels[0][
+        "Bounding Box Debugger/Images"]) == 8  # every val image (< 16)
+    metrics = [p for p, _ in run.logged if "metrics/mAP_0.5" in p][0]
+    assert metrics["metrics/mAP_0.5"] == res["map50"]
+
+
+def test_wandb_without_the_package_warns_and_finishes(ws, monkeypatch,
+                                                      caplog):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import fails
+    res = _port(ws, _common(ws, "nowandb") + ["--weights", ws["ckpts"][0],
+                                              "--wandb"], data=ws["small"])
+    assert "wandb unavailable" in caplog.text and res["seen"] == 4
 
 
 @pytest.mark.parametrize("flag", ["--augment", "--int8", "--compute-loss"])

@@ -6,8 +6,12 @@ write ``hyp.yaml``, ``opt.yaml``, ``results.txt`` (with the val loss),
 test CLI reads; a bare ``--resume`` continues at epoch 2. ``--device-aug``
 and ``--quad`` (batch rounded to a multiple of 4) train an epoch each, and
 ``--evolve`` writes the JAX CLI's ``evolve.txt`` rows with the same stub
-in place of a training run. Every flag of a later slice exits naming its
-ROADMAP item, and without a GPU and without ``--device cpu`` the CLI exits
+in place of a training run (and ``evolve.png``). The W&B flags log to a
+fake wandb module (without one the run warns and trains), ``--resume``
+takes a ``wandb-artifact://`` path, a run writes its plots (without
+matplotlib it says once that they are skipped), ``--data`` and a
+``--cfg`` YAML are found by a recursive search and missing val paths
+stop the run; without a GPU and without ``--device cpu`` the CLI exits
 non-zero naming CUDA. The training bench prints its JSON line on the CPU
 and likewise needs a GPU by default."""
 
@@ -166,14 +170,108 @@ def test_evolve_writes_the_rows_of_jax(ws, tmp_path, monkeypatch):
     assert rows["port"][1] == pytest.approx(rows["jax"][1])
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--wandb"], "item 7"),
-    (["--upload-dataset"], "item 7"), (["--entity", "me"], "item 7"),
-    (["--bbox-interval", "2"], "item 7"),
-    (["--artifact-alias", "v1"], "item 7")])
-def test_flags_of_later_slices_exit_with_their_roadmap_item(ws, flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
-        _run(ws, flag)
+def test_wandb_flags_log_dataset_epochs_panels_and_models(ws, monkeypatch):
+    from tests._torch_port import install_fake_wandb
+
+    run = install_fake_wandb(monkeypatch)
+    r = _run(ws, ["--epochs", "2", "--name", "wandb", "--wandb",
+                  "--upload-dataset", "--entity", "me", "--bbox-interval",
+                  "2", "--save-period", "1", "--artifact-alias", "v1"])
+    assert run.init_kw["entity"] == "me" and run.finished
+    assert run.init_kw["config"]["artifact_alias"] == "v1"
+    data_art, *model_arts = run.artifacts
+    assert data_art.type == "dataset" and {n for _, n in data_art.refs} == {
+        "train_rgb", "train_ir", "val_rgb", "val_ir"}
+    assert [a.metadata["epoch"] for a in model_arts] == [0, 1]
+    assert "latest" in model_arts[-1].aliases
+    steps = [st for p, st in run.logged if "train/box_loss" in p]
+    assert steps == [0, 1]
+    panels = [p for p, _ in run.logged if "Bounding Box Debugger/Images" in p]
+    assert len(panels) == 1  # epoch 0 only, every 2 epochs
+    assert Path(r["save_dir"], "tb").is_dir()
+
+
+def test_wandb_without_the_package_warns_and_trains(ws, monkeypatch, caplog):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import fails
+    r = _run(ws, ["--epochs", "1", "--name", "nowandb", "--wandb",
+                  "--noval", "--nosave"])
+    assert "wandb unavailable" in caplog.text
+    assert (Path(r["save_dir"]) / "results.txt").read_text().startswith(
+        "epoch 0/0")
+
+
+def test_resume_from_a_wandb_artifact(ws, monkeypatch, caplog):
+    from multispectral_object_detection_tpu_torch.utils import loggers
+    from tests._torch_port import install_fake_wandb
+
+    caplog.set_level("INFO")
+    run = install_fake_wandb(monkeypatch)
+    first = _run(ws, ["--epochs", "1", "--name", "art", "--noval"])
+    last = str(Path(first["save_dir"]) / "last")
+    monkeypatch.setattr(loggers.ExperimentLogger, "resume_from_artifact",
+                        lambda self, path, out: last if path.startswith(
+                            "wandb-artifact://") else None)
+    _run(ws, ["--epochs", "2", "--name", "art2", "--noval", "--nosave",
+              "--resume", "wandb-artifact://me/proj/run_x_model:latest"])
+    assert f"resumed from {last} at epoch 1" in caplog.text
+    assert run.init_kw["name"] == "art2"
+
+
+def test_plots_of_a_run(ws):
+    r = _run(ws, ["--epochs", "1", "--name", "plots"])
+    run = Path(r["save_dir"])
+    for f in ("labels.png", "labels_correlogram.jpg", "LR.png",
+              "train_batch0.jpg", "train_batch1.jpg", "results.png"):
+        assert (run / f).stat().st_size > 0, f
+
+
+def test_without_matplotlib_plots_are_skipped_once(ws, monkeypatch, caplog):
+    from multispectral_object_detection_tpu_torch.utils import plots
+
+    caplog.set_level("INFO")
+    monkeypatch.setattr(plots, "available", lambda: False)
+    r = _run(ws, ["--epochs", "1", "--name", "noplots"])
+    assert caplog.text.count("plots skipped: matplotlib is not "
+                             "installed") == 1
+    assert not list(Path(r["save_dir"]).glob("*.png"))
+    assert (Path(r["save_dir"]) / "results.txt").is_file()
+
+
+def test_data_and_cfg_paths_are_found_and_val_paths_checked(
+        ws, tmp_path, monkeypatch):
+    (tmp_path / "cfgs").mkdir()
+    (tmp_path / "cfgs" / "mini.yaml").write_text(yaml.safe_dump(
+        get_config(CFG, nc=2)))
+    (tmp_path / "sets").mkdir()
+    (tmp_path / "sets" / "synth.yaml").write_text(yaml.safe_dump(ws["data"]))
+    monkeypatch.chdir(tmp_path)
+    args = train_cli.parse_args([
+        "--data", "synth.yaml", "--cfg", "mini.yaml", "--batch-size", "4",
+        "--img-size", str(IMG), "--fp32", "--device", "cpu", "--epochs", "1",
+        "--noval", "--nosave", "--project", str(tmp_path / "runs")])
+    train_cli.run(args)
+    assert args.data == "./sets/synth.yaml"
+    assert args.cfg == "./cfgs/mini.yaml"
+    missing = dict(ws["data"], val_rgb=str(tmp_path / "nowhere"))
+    args = train_cli.parse_args(["--data", "unused", "--cfg", CFG,
+                                 "--device", "cpu", "--project",
+                                 str(tmp_path / "runs")])
+    args.data = missing
+    with pytest.raises(FileNotFoundError, match="nowhere"):
+        train_cli.run(args)
+
+
+def test_evolve_plots_fitness_against_each_hyperparameter(ws, tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(train_cli, "run", lambda a: {
+        "mp": 0.5, "mr": 0.5, "map50": a.hyp["lr0"], "map": 0.1})
+    args = train_cli.parse_args(["--data", "unused", "--evolve", "2",
+                                 "--project", str(tmp_path), "--device",
+                                 "cpu"])
+    train_cli.evolve(args)
+    assert (tmp_path / "exp_evolve" / "evolve.png").stat().st_size > 0
 
 
 def test_cli_without_gpu_and_without_device_cpu_exits(ws, capsys):
