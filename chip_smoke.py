@@ -76,10 +76,10 @@ failure raises and the script exits non-zero:
    repeated batch of synthetic pairs (ms per step, images/s, peak GB, a
    falling loss); the train CLI for 2 epochs of the l model at 640, batch 8,
    on 16 synthetic PNG pairs (K1's 168 launches per eval forward of the EMA
-   model, and K1 against its plain twin on the trained EMA weights), its
-   ``--resume`` at epoch 2, the stripped checkpoint through the test CLI
-   with ``--compute-loss``, and the detect CLI's ``--update``; a
-   ``{"train": {...}}`` line.
+   model, and K1 against its plain twin on the trained EMA weights), the
+   stripped checkpoint through the test CLI with ``--compute-loss``, and
+   the detect CLI's ``--update`` (the run's resume at epoch 2 is phase
+   11c's); a ``{"train": {...}}`` line.
 9. device augmentation and the parallel path: (a) the device mosaic
    (``ops/augment_device.py``) at l@640 bs8 on tiles of the synthetic
    pairs, the card against the CPU on the same draws, ms per batch by CUDA
@@ -99,7 +99,9 @@ failure raises and the script exits non-zero:
    2 at 640 px, 1280 for the P6 family) against the unfused fp32 model,
    ms per batch; ``hubconf.yolov5l6`` through ``Detector.__call__``;
    yolov5l6 with ``--c3-kernel`` at 1280 px, K2 at each of its shapes
-   (C = 384 new) against the plain twin, its launches and ms; (b)
+   (C = 384 new) against the plain twin, its launches and ms, and one
+   forward's 48 launches by graph replay beside the plain twin, the cuDNN
+   route and the bound (PERF's kernel-table row); (b)
    Grad-CAM on l@640 transformerx3 at three nodes, ``sum`` mode through
    K1 against the plain stack, ``grad`` mode in fp32 card vs CPU on one
    pair at 320 px, the CLI's overlays; (c) the export CLI at l@640 batch
@@ -109,7 +111,23 @@ failure raises and the script exits non-zero:
    ``test_cli --plots`` (without matplotlib: its exit message) and the
    train CLI for one epoch with ``--wandb`` and no wandb; a
    ``{"long_tail": {...}}`` line.
-11. a ``{"kernels": [...]}`` line, the card line, and the final
+11. the port's tools (``multispectral_object_detection_tpu_torch.tools``):
+   (a) ``profile_model`` at l@640 bs16, default and ``--c3-kernel``
+   (K1's 168 launches per forward, K2's 84 with the flag, the kinds summing
+   to the device time; phases 4, 7 and 8 print their breakdowns through
+   the same module); (b) ``mfu`` at l@640: the forward's GFLOPs per pair
+   against ``model_info``'s count (within 0.1 %), the MFU of phase 4's
+   default leg and of phase 8's train steps (remat none and blocks)
+   against the card's named peak; (c) ``resume_runs`` continuing phase
+   8's 2-epoch train CLI run, raised to 3 epochs in its ``opt.yaml``, at
+   epoch 2 (K1's 168 launches per eval forward); (d) ``dataset_tools`` (autosplit,
+   extract-boxes, flatten) on phase 5's 64 synthetic PNG pairs (one PNG
+   crop per label row, equal to its source region); (e)
+   ``export_torch_ckpt`` on a pickled reference-style checkpoint of the l
+   model (its class in a ``--repo`` directory) to a ``.pt``, bit-equal to
+   the source and serving the same boxes through ``Detector``; a
+   ``{"tools": {...}}`` line.
+12. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -1210,60 +1228,28 @@ def phase_timing(torch, F, cs, k2, device, det, batches, stages, card):
 
 
 def device_time(torch, fn) -> tuple[float, int]:
-    """Device ms and kernel launches of one call of fn (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device ms and kernel launches of one call of fn (torch.profiler,
+    through tools/profile_model.py)."""
+    from multispectral_object_detection_tpu_torch.tools import (
+        profile_model as pm)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in kernels) / 1e3,
-            sum(e.count for e in kernels))
+    res = pm.profile(fn, pm.SERVING_KINDS, runs=1, warmup=0)
+    return res["device_ms"], res["launches"]
 
 
-def profile_forward(torch, fn, label: str, runs: int = 2) -> None:
-    """Device time of the forward by kind of operation (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_forward(torch, fn, label: str, runs: int = 2) -> dict:
+    """Device time of the forward by kind of operation (torch.profiler,
+    through tools/profile_model.py)."""
+    from multispectral_object_detection_tpu_torch.tools import (
+        profile_model as pm)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kinds = {  # first match wins
-        "CFT kernels": ("layernorm_kernel", "gemm_wgmma_kernel",
-                        "gemm_f32_kernel", "attention_mma_kernel",
-                        "attention_f32_kernel"),
-        "C3 kernel (K2)": ("conv_wgmma_kernel", "conv_f32_kernel"),
-        "convolution": ("fprop", "conv", "xmma", "implicit"),
-        "silu": ("silu",),
-        "other elementwise (bias add, residual add)": ("elementwise",),
-        "pooling": ("pool",),
-        "cat/copy/resize": ("cat", "copy", "upsample", "interp"),
-    }
-    per_kind = {k: 0.0 for k in kinds}
-    per_kind["other"] = 0.0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
-    if not kernels:
-        print("profile: no device events recorded; breakdown not measured")
-        return
-    for e in kernels:
-        name = e.key.lower()
-        kind = next((k for k, pats in kinds.items()
-                     if any(p in name for p in pats)), "other")
-        per_kind[kind] += e.self_device_time_total / 1e3 / runs
+    res = pm.profile(fn, pm.SERVING_KINDS, runs=runs)
     print(f"profile of the {label} forward (torch.profiler, {runs} runs): "
-          f"{total:.3f} ms of kernels per forward; " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in per_kind.items()))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3 / runs:8.3f} ms "
-              f"x{e.count // runs:<4} {e.key[:90]}")
+          f"{res['device_ms']:.3f} ms of kernels per forward; "
+          + pm.kinds_line(res))
+    for name, ms, n in res["kernels"][:8]:
+        print(f"  {ms / runs:8.3f} ms x{n // runs:<4} {name[:90]}")
+    return res
 
 
 # training phase: the mini model of the card-vs-CPU step, the full-width
@@ -1350,51 +1336,29 @@ def _remat_one_step(torch, device, remat: str, batch):
 
 def _profile_train_steps(torch, step, batch, runs: int = 2) -> dict:
     """Wall time and device busy time of ``runs`` train steps
-    (torch.profiler), by kind of kernel; the idle share is 1 - busy / wall.
-    The profiler's own host cost lengthens the wall time a little."""
-    from torch.profiler import ProfilerActivity, profile
+    (torch.profiler, through tools/profile_model.py), by kind of kernel;
+    the idle share is 1 - busy / wall. The profiler's own host cost
+    lengthens the wall time a little."""
+    from multispectral_object_detection_tpu_torch.tools import (
+        profile_model as pm)
 
-    kinds = {  # first match wins
-        "convolution": ("conv", "fprop", "dgrad", "wgrad", "implicit",
-                        "xmma", "cudnn"),
-        "batch norm": ("batch_norm",),
-        "optimizer and EMA (foreach)": ("multi_tensor_apply",),
-        "matmul": ("gemm", "cutlass", "sm90"),
-        "loss gather and scatter": ("index", "scatter"),
-        "elementwise": ("elementwise",),
-        "reductions": ("reduce",),
-        "copy/cat/resize": ("copy", "cat", "upsample", "interp"),
-    }
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(runs):
-            step(*batch, seed=1000 + i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / runs
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
-    per_kind = {k: 0.0 for k in kinds}
-    per_kind["other"] = 0.0
-    for e in kernels:
-        name = e.key.lower()
-        kind = next((k for k, pats in kinds.items()
-                     if any(p in name for p in pats)), "other")
-        per_kind[kind] += e.self_device_time_total / 1e3 / runs
-    launches = sum(e.count for e in kernels) // runs
-    print(f"      profile ({runs} steps, torch.profiler): {wall:.3f} ms per "
-          f"step, {busy:.3f} ms of kernels ({launches} launches), device idle "
-          f"{100 * (1 - busy / wall):.1f} %; " + ", ".join(
-              f"{k} {v:.3f}" for k, v in per_kind.items()))
-    return {"profiled_ms_per_step": wall, "device_busy_ms": busy,
-            "launches_per_step": launches, "by_kind_ms": per_kind}
+    seeds = iter(range(1000, 1001 + runs))  # one more: the profiler's warm-up
+    res = pm.profile(lambda: step(*batch, seed=next(seeds)), pm.TRAIN_KINDS,
+                     runs=runs, warmup=0)
+    print(f"      profile ({runs} steps, torch.profiler): {res['host_ms']:.3f}"
+          f" ms per step, {res['device_ms']:.3f} ms of kernels "
+          f"({res['launches']} launches), device idle {100 * res['idle']:.1f}"
+          f" %; " + pm.kinds_line(res))
+    return {"profiled_ms_per_step": res["host_ms"],
+            "device_busy_ms": res["device_ms"],
+            "launches_per_step": res["launches"],
+            "by_kind_ms": {k: v["ms"] for k, v in res["by_kind"].items()}}
 
 
-def phase_train(torch, device, card: str) -> dict:
+def phase_train(torch, device, card: str) -> tuple:
     """Phase 8: training on the card. Returns the numbers for its JSON
-    line."""
+    line, and the train CLI's 2-epoch run for phase 11c (see
+    ``_train_cli_runs``)."""
     from multispectral_object_detection_tpu_torch import bench_train
     from multispectral_object_detection_tpu_torch.data.synthetic import (
         synthetic_batch)
@@ -1494,16 +1458,19 @@ def phase_train(torch, device, card: str) -> dict:
         out[remat].update(prof)
         out[remat]["loss_first_last"] = [losses[0], losses[-1]]
         torch.cuda.empty_cache()
-    out["cli"] = _train_cli_runs(torch, device, card)
+    out["cli"], run = _train_cli_runs(torch, device, card)
     out["seconds"] = time.perf_counter() - t_phase
-    return out
+    return out, run
 
 
-def _train_cli_runs(torch, device, card: str) -> dict:
+def _train_cli_runs(torch, device, card: str) -> tuple:
     """Phase 8.3: the train CLI (2 epochs of the l model at 640, batch 8,
-    16 synthetic PNG pairs), its resume, the stripped checkpoint through the
-    test CLI with --compute-loss and the detect CLI's --update, and K1
-    against its plain twin on the trained EMA weights."""
+    16 synthetic PNG pairs), the stripped checkpoint through the test CLI
+    with --compute-loss and the detect CLI's --update, and K1 against its
+    plain twin on the trained EMA weights. Returns the numbers and {tmp,
+    run, data}: the 2-epoch run, which phase 11c resumes at epoch 2 (its
+    temporary directory is removed after phase 11, or here if this phase
+    fails)."""
     from multispectral_object_detection_tpu_torch.cli import (detect_cli,
                                                                test_cli,
                                                                train_cli)
@@ -1587,15 +1554,6 @@ def _train_cli_runs(torch, device, card: str) -> dict:
         out["k1_vs_plain_rel"] = worst
         del model, raw_k, raw_p
 
-        # resume at epoch 2
-        r2 = train(["--epochs", "3", "--resume", str(run / "last"),
-                    "--noval", "--name", "resumed"])
-        lines2 = (Path(r2["save_dir"]) / "results.txt").read_text() \
-            .splitlines()
-        print(f"  8.3 --resume {run.name}/last: {lines2}")
-        check([ln.split()[1] for ln in lines2] == ["2/2"],
-              "--resume did not continue at epoch 2")
-
         # the stripped checkpoint through the test CLI, with the val loss
         targs = test_cli.parse_args(["--data", "unused", "--cfg", cfg_name,
                                      "--weights", str(run / "last"),
@@ -1612,22 +1570,25 @@ def _train_cli_runs(torch, device, card: str) -> dict:
               "test CLI on the stripped checkpoint")
         out["val_loss"] = ev["val_loss"]
 
-        # detect --update strips the resumed run's training state
-        last2 = Path(r2["save_dir"]) / "last"
-        (last2 / "model.pt").unlink()
+        # detect --update strips the run's training state again (the
+        # run's --resume at epoch 2 is phase 11c's, through resume_runs)
+        last = run / "last"
+        (last / "model.pt").unlink()
         dargs = detect_cli.parse_args([
-            "--cfg", cfg_name, "--nc", "2", "--weights", str(last2),
+            "--cfg", cfg_name, "--nc", "2", "--weights", str(last),
             "--source1", rgb_dir, "--source2", ir_dir, "--img-size",
             str(TRAIN_IMG), "--nosave", "--update", "--project",
             str(tmp / "det")])
         d = detect_cli.run(dargs)
-        check((last2 / "model.pt").is_file(), "--update wrote no model.pt")
-        print(f"  8.3 detect CLI --update on {last2.parent.name}/last: "
+        check((last / "model.pt").is_file(), "--update wrote no model.pt")
+        print(f"  8.3 detect CLI --update on {run.name}/last: "
               f"{d['n_images']} pairs, model.pt written")
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
         torch.cuda.empty_cache()
-    return out
+    return out, {"tmp": tmp, "run": run, "data": data}
 
 
 # phase 9: device-side augmentation, --quad, --evolve, and the parallel path
@@ -2228,10 +2189,37 @@ def _zoo_10a(torch, device) -> dict:
           f"{launches} launches per forward, {k2_ms:.4f} ms of K2; forward "
           f"{fwd_k_ms:.3f} ms (plain twin {fwd_ms:.3f}); raw outputs K2 vs "
           f"plain rel={worst:.3e}")
+    # PERF's kernel-table row: one forward's blocks, each on inputs of its
+    # own, timed as phase 7 times the l@640 row (graph replay), beside the
+    # plain twin, the cuDNN route and the bound
+    bf, g2 = torch.bfloat16, torch.Generator().manual_seed(12)
+    row = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                         "bound_ms"), 0.0)
+    for shape, (_, _, n) in sorted(seen.items()):
+        ins = [k2_inputs(shape, bf, bf, g2, device) for _ in range(n)]
+        libs = [k2_library(*b) for b in ins]
+        row["ms"] += graph_ms(lambda: [k2.c3_bottleneck(*b) for b in ins])
+        row["plain_ms"] += graph_ms(
+            lambda: [k2.c3_bottleneck_plain(*b) for b in ins])
+        row["library_ms"] += graph_ms(lambda: [f() for f in libs])
+        P, C = shape[0] * shape[1] * shape[2], shape[3]
+        tb = n * 2 * (2 * P * C + 10 * C * C + 2 * C) / PEAK_BYTES_PER_S * 1e3
+        to = n * 20 * P * C * C / PEAK_FLOPS["bf16"] * 1e3
+        row["bytes_ms"] += tb
+        row["ops_ms"] += to
+        row["bound_ms"] += max(tb, to)
+        del ins, libs
+    row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] \
+        else "operations"
+    print(f"zoo yolov5l6 K2 row ({launches} launches, graph replay): "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, cuDNN route "
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it")
     out["yolov5l6_c3_kernel"] = {"k2_launches": launches, "k2_ms": k2_ms,
                                  "forward_ms": fwd_k_ms,
                                  "forward_plain_ms": fwd_ms,
-                                 "rel_err": worst, "shapes": shapes}
+                                 "rel_err": worst, "shapes": shapes,
+                                 "row": row}
     del model, raw_k, raw_p, x, seen
     torch.cuda.empty_cache()
     return out
@@ -2557,6 +2545,309 @@ def phase_long_tail(torch, device) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 11
+PROFILE_ITERS = 2
+# the FLOPs of one l@640 pair: model_info's count (phase 10d, nc=1); the MFU
+# tool counts with nc=3, as the JAX tool does (0.034 GFLOPs more in the
+# Detect head), inside the bound
+L640_GFLOPS, TOL_GFLOPS = 224.343, 1e-3
+TOL_IMPORT_PX = 1e-3  # boxes of the imported checkpoint, as phase 6 holds them
+# the reference's model class, stood in for by the port's graph: unpickling
+# a reference checkpoint needs it on sys.path (export_torch_ckpt --repo)
+REFERENCE_YOLO = """
+from multispectral_object_detection_tpu_torch.models.model import (
+    DetectionModel)
+from multispectral_object_detection_tpu_torch.models.parser import (
+    parse_model_config)
+
+
+class Model(DetectionModel):
+    def __init__(self, cfg, nc):
+        super().__init__(parse_model_config(cfg, nc=nc))
+"""
+
+
+def _profile_11a() -> dict:
+    """11a: tools/profile_model.py at l@640 bs16, default and --c3-kernel:
+    K1's 168 and K2's 84 launches per forward, the kinds summing to the
+    device time."""
+    from multispectral_object_detection_tpu_torch.tools import (
+        profile_model as pm)
+
+    out = {}
+    for flag in ([], ["--c3-kernel"]):
+        name = " ".join(flag) or "default"
+        print(f"profile_model {name}:")
+        res = pm.run(pm.parse_args(["--iters", str(PROFILE_ITERS), "--top",
+                                    "8"] + flag))
+        kinds = res["by_kind"]
+        cft = kinds["CFT kernels"]["launches"]
+        c3 = kinds["C3 kernel (K2)"]["launches"]
+        total = sum(v["ms"] for v in kinds.values())
+        print(f"profile_model {name}: CFT {cft} launches per forward, K2 "
+              f"{c3}; kinds sum to {total:.3f} of {res['device_ms']:.3f} ms")
+        check(cft == 168, f"profile_model {name}: {cft} CFT launches != 168")
+        check(c3 == (84 if flag else 0),
+              f"profile_model {name}: {c3} K2 launches")
+        check(abs(total - res["device_ms"]) <= 1e-6 * res["device_ms"],
+              f"profile_model {name}: kinds {total} != {res['device_ms']}")
+        out[name] = {k: res[k] for k in ("device_ms", "host_ms", "idle",
+                                         "launches", "by_kind")}
+    return out
+
+
+def _mfu_11b(torch, legs: dict, train: dict) -> dict:
+    """11b: tools/mfu.py at l@640 on the card: the forward's FLOPs against
+    model_info's count, the MFU of phase 4's default leg and of phase 8's
+    train steps (remat none and blocks), against the card's peak."""
+    from multispectral_object_detection_tpu_torch.tools import mfu
+
+    fwd = mfu.run(mfu.parse_args([]))
+    gf = fwd["gflops_per_pair"]
+    print(f"mfu l@640 forward: {gf:.3f} GFLOPs per pair ({fwd['counted']}); "
+          f"peak {fwd['peak_tflops']} TFLOP/s (dense bf16) for "
+          f"{torch.cuda.get_device_name(0)} [{fwd['card']}]")
+    check(abs(gf / L640_GFLOPS - 1) <= TOL_GFLOPS,
+          f"mfu: {gf} GFLOPs per pair, expected {L640_GFLOPS}")
+    rate = legs["default"]["value"]
+    leg = mfu.result(mfu.parse_args(["--pairs-per-s", str(rate)]), gf * 1e9,
+                     fwd["peak_tflops"] * 1e12, fwd["card"])
+    print(f"mfu bench default leg: {rate:.1f} pairs/s -> "
+          f"{leg['achieved_tflops']:.2f} TFLOP/s, MFU {leg['mfu_pct']:.2f} %")
+    out = {"forward": fwd, "default_leg": leg}
+    for remat in ("none", "blocks"):
+        ms = train[remat]["ms_per_step"]
+        r = mfu.run(mfu.parse_args(["--train", "--batch", str(TRAIN_BATCH),
+                                    "--remat", remat, "--ms-per-step",
+                                    str(ms)]))
+        print(f"mfu train step l@{TRAIN_IMG} bs{TRAIN_BATCH} remat {remat}: "
+              f"{r['gflops_per_step']:.1f} GFLOPs per step "
+              f"({r['gflops_per_pair'] / gf:.2f} x the forward per pair), "
+              f"{ms:.3f} ms -> {r['achieved_tflops']:.2f} TFLOP/s, MFU "
+              f"{r['mfu_pct']:.2f} %")
+        out[f"train_{remat}"] = r
+        torch.cuda.empty_cache()
+    ratio = out["train_none"]["gflops_per_pair"] / gf
+    check(2.5 <= ratio <= 3.5 and out["train_blocks"]["gflops_per_step"]
+          > out["train_none"]["gflops_per_step"],
+          f"mfu: train step {ratio:.2f} x the forward, or blocks not above")
+    return out
+
+
+def _resume_11c(torch, run_of_8: dict) -> dict:
+    """11c: phase 8's 2-epoch train CLI run raised to 3 epochs in its
+    opt.yaml (its data, passed as a dict, written as a flat data YAML) and
+    continued by tools/resume_runs.py at epoch 2, K1 in its eval."""
+    import logging
+
+    from multispectral_object_detection_tpu_torch.data.hyps import (
+        dump_flat_yaml, load_flat_yaml)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.tools import resume_runs
+
+    run, tmp = run_of_8["run"], run_of_8["tmp"]
+    (tmp / "data.yaml").write_text(dump_flat_yaml(run_of_8["data"]))
+    opt = load_flat_yaml((run / "opt.yaml").read_text())
+    check(opt["epochs"] == 2, f"opt.yaml of {run.name}: {opt['epochs']}")
+    opt.update(epochs=3, data=str(tmp / "data.yaml"))
+    (run / "opt.yaml").write_text(dump_flat_yaml(opt))
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    root = logging.getLogger()
+    level = root.level
+    root.setLevel(logging.INFO)  # the train CLI's "resumed from" line
+    root.addHandler(handler)
+    cs.reset_launches()
+    k2.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = resume_runs.resume_all(str(run.parent))
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = res.get(str(run))
+    check(list(res) == [str(run)] and isinstance(r, dict),
+          f"resume_runs: {res}")
+    said = f"resumed from {run / 'last'} at epoch 2"
+    meta = json.loads((run / "last" / "meta.json").read_text())
+    lines = (run / "results.txt").read_text().splitlines()
+    k1 = sum(cs.LAUNCHES.values())
+    print(f"resume_runs: {run.name} in {secs:.1f} s; {lines[-1]}")
+    print(f"resume_runs: eval {r['eval_forwards']} EMA forwards, {k1} K1 "
+          f"launches (168 per forward)")
+    check(any(said in m for m in records), f"no '{said}' in the log")
+    check(meta["epoch"] == 2 and len(lines) == 3
+          and lines[2].split()[1] == "2/2" and "mAP50" in lines[2],
+          f"resumed run: meta {meta}, results {lines}")
+    check(r["eval_forwards"] > 0 and k1 == 168 * r["eval_forwards"]
+          and sum(k2.LAUNCHES.values()) == 0,
+          f"resumed eval: K1 {k1} for {r['eval_forwards']} forwards")
+    return {"seconds_run": secs, "eval_forwards": r["eval_forwards"],
+            "k1_launches": k1, "results": lines}
+
+
+def _dataset_11d(tmp: Path) -> dict:
+    """11d: tools/dataset_tools.py on the 64 PNG pairs phase 5 writes (the
+    same generator and seed), the card's route (no cv2: PNG crops)."""
+    import numpy as np
+
+    from multispectral_object_detection_tpu_torch.data.datasets import (
+        image_to_label_path, read_label_file)
+    from multispectral_object_detection_tpu_torch.data.imageio import imread
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.tools import (
+        dataset_tools as dt)
+
+    root = tmp / "eval_set"
+    make_paired_dataset(str(root), n_images=EVAL_IMAGES, nc=1, seed=0,
+                        img_hw=EVAL_HW)
+    splits = dt.autosplit(str(root))
+    counts = {k: len(v) for k, v in splits.items()}
+    check(sum(counts.values()) == 2 * EVAL_IMAGES, f"autosplit: {counts}")
+    saved = sys.modules.get("cv2", "absent")
+    sys.modules["cv2"] = None  # the card's route, whether cv2 is there or not
+    try:
+        crops = dt.extract_boxes(str(root))
+    finally:
+        if saved == "absent":
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    rows = differ = 0
+    for src in sorted((root / "rgb" / "images").glob("*.png")):
+        lab, _ = read_label_file(image_to_label_path(str(src)))
+        im = imread(src)
+        h, w = im.shape[:2]
+        for j, row in enumerate(lab):
+            b = row[1:] * np.array([w, h, w, h])
+            x1, y1 = int(max(b[0] - b[2] / 2, 0)), int(max(b[1] - b[3] / 2, 0))
+            x2, y2 = int(min(b[0] + b[2] / 2, w)), int(min(b[1] + b[3] / 2, h))
+            crop = imread(tmp / "classifier" / str(int(row[0]))
+                          / f"{src.stem}_{j}.png")
+            differ += not np.array_equal(crop, im[y1:y2, x1:x2])
+            rows += 1
+    n = dt.flatten_recursive(str(root / "rgb"))
+    files = [p for p in (root / "rgb").rglob("*") if p.is_file()]
+    flat = Path(str(root / "rgb") + "_flat")
+    copied = sum((flat / p.name).read_bytes() == p.read_bytes()
+                 for p in files)
+    print(f"dataset_tools: autosplit {counts}; extract-boxes {len(crops)} "
+          f"PNG crops for {rows} label rows, {differ} differing from their "
+          f"source regions; flatten {n} files, {copied} of {len(files)} "
+          f"byte-equal")
+    check(rows == len(crops) and differ == 0
+          and all(p.suffix == ".png" for p in crops),
+          f"extract-boxes: {len(crops)} crops, {rows} rows, {differ} differ")
+    check(n == copied == len(files) == 2 * EVAL_IMAGES, "flatten")
+    return {"splits": counts, "crops": len(crops), "flattened": n}
+
+
+def _import_11e(torch, device, tmp: Path) -> dict:
+    """11e: a pickled reference-style checkpoint ({'model', 'ema'}, half
+    precision, its class in a --repo directory) of the l model through
+    tools/export_torch_ckpt.py to a .pt, read by load_inference_params into
+    Detector: the state dict bit-equal to the source's (read as fp32), the
+    boxes of Detector.infer equal to those of a Detector built from the
+    source."""
+    import numpy as np
+
+    from multispectral_object_detection_tpu_torch.hub import Detector
+    from multispectral_object_detection_tpu_torch.models.configs import (
+        get_config)
+    from multispectral_object_detection_tpu_torch.models.model import (
+        init_weights)
+    from multispectral_object_detection_tpu_torch.tools import (
+        export_torch_ckpt)
+    from multispectral_object_detection_tpu_torch.utils.checkpoint import (
+        load_inference_params)
+
+    repo = tmp / "reference"
+    (repo / "models").mkdir(parents=True)
+    (repo / "models" / "__init__.py").write_text("")
+    (repo / "models" / "yolo.py").write_text(REFERENCE_YOLO)
+    cfg_name = "yolov5l_fusion_transformerx3"
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(repo))
+    try:
+        from models.yolo import Model
+
+        with torch.device(device):  # a faster init than on the host
+            m = Model(get_config(cfg_name, nc=1), nc=1)
+        init_weights(m, torch.Generator(device=device).manual_seed(0))
+        m.half()  # as the reference saves it
+        src = {k: (v.float() if v.is_floating_point() else v).cpu()
+               for k, v in m.state_dict().items()}
+        torch.save({"epoch": 0, "model": m, "ema": m}, tmp / "best.pt")
+    finally:
+        sys.path.remove(str(repo))
+        for k in [k for k in sys.modules if k.split(".")[0] == "models"]:
+            del sys.modules[k]
+    del m
+    t1 = time.perf_counter()
+    rc = export_torch_ckpt.main(["--pt", str(tmp / "best.pt"), "--repo",
+                                 str(repo), "--out", str(tmp / "best_sd.pt")])
+    t2 = time.perf_counter()
+    check(rc == 0, f"export_torch_ckpt exited {rc}")
+    sd = load_inference_params(tmp / "best_sd.pt")
+    same = sorted(sd) == sorted(src) and all(
+        sd[k].dtype == src[k].numpy().dtype
+        and sd[k].tobytes() == src[k].numpy().tobytes() for k in src)
+    gen = torch.Generator(device=device).manual_seed(13)
+    rgb, ir = (torch.randint(0, 256, (BATCH, IMG, IMG, 3), dtype=torch.uint8,
+                             device=device, generator=gen) for _ in range(2))
+    outs = []
+    for kw in ({"weights": str(tmp / "best_sd.pt")}, {"state_dict": src}):
+        det = Detector(cfg_name, nc=1, img_size=IMG, conf=SERVE_CONF,
+                       device=device, **kw)
+        outs.append(det.infer(rgb, ir))
+        del det
+    torch.cuda.synchronize()
+    a, b = outs
+    valid_equal = bool(torch.equal(a.valid, b.valid))
+    d_px = float((a.boxes - b.boxes)[a.valid].abs().max()) \
+        if valid_equal and bool(a.valid.any()) else float("inf")
+    print(f"export_torch_ckpt: pickled l@640 checkpoint (half) written in "
+          f"{t1 - t0:.1f} s, exported to .pt in {t2 - t1:.1f} s; {len(sd)} "
+          f"tensors, bit-equal to the source: {same}; Detector.infer boxes "
+          f"({int(a.valid.sum())} valid) max |d| {d_px:.3g} px against the "
+          f"source's (tol {TOL_IMPORT_PX})")
+    check(same, "imported state dict differs from the source's")
+    check(valid_equal and d_px <= TOL_IMPORT_PX,
+          f"imported Detector boxes differ: {d_px}")
+    torch.cuda.empty_cache()
+    return {"tensors": len(sd), "bit_equal": same, "max_box_px": d_px,
+            "valid": int(a.valid.sum())}
+
+
+def phase_tools(torch, device, card: str, legs: dict, train: dict,
+                run_of_8: dict) -> dict:
+    """Phase 11: the port's tools on the card."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    out = {"card": card}
+    try:
+        for key, fn in (("profile", _profile_11a),
+                        ("mfu", lambda: _mfu_11b(torch, legs, train)),
+                        ("resume", lambda: _resume_11c(torch, run_of_8)),
+                        ("dataset_tools", lambda: _dataset_11d(tmp)),
+                        ("ckpt_import", lambda: _import_11e(torch, device,
+                                                           tmp))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["seconds"] = time.perf_counter() - t0
+            print(f"  11 {key}: {out[key]['seconds']:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2602,14 +2893,20 @@ def main() -> int:
                                stages, card)
     del det, batches, stages
     torch.cuda.empty_cache()
-    train = phase_train(torch, device, card)
+    train, run_of_8 = phase_train(torch, device, card)
     print(f"phase 8: training on the card in {train['seconds']:.1f} s")
-    par = phase_parallel_aug(torch, device, card)
-    print(f"phase 9: device augmentation, --quad, --evolve and the parallel "
-          f"path in {par['seconds']:.1f} s")
-    tail = phase_long_tail(torch, device)
-    print(f"phase 10: the hub zoo, Grad-CAM, export, profiling, plots and "
-          f"loggers in {tail['seconds']:.1f} s")
+    try:
+        par = phase_parallel_aug(torch, device, card)
+        print(f"phase 9: device augmentation, --quad, --evolve and the "
+              f"parallel path in {par['seconds']:.1f} s")
+        tail = phase_long_tail(torch, device)
+        print(f"phase 10: the hub zoo, Grad-CAM, export, profiling, plots and "
+              f"loggers in {tail['seconds']:.1f} s")
+        tools = phase_tools(torch, device, card, legs, train, run_of_8)
+        print(f"phase 11: profile_model, mfu, resume_runs, dataset_tools and "
+              f"export_torch_ckpt in {tools['seconds']:.1f} s")
+    finally:
+        shutil.rmtree(run_of_8["tmp"], ignore_errors=True)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -2624,6 +2921,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"parallel_aug": par}))
     print(json.dumps({"long_tail": tail}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,10 +112,9 @@ def parse_args(argv=None):
 def _load_data(data) -> dict:
     if isinstance(data, dict):
         return data
-    import yaml  # only for YAML paths
+    from ..data.hyps import read_yaml
 
-    with open(data) as f:
-        return yaml.safe_load(f)
+    return read_yaml(data)
 
 
 def _check_flags(args) -> None:

@@ -163,6 +163,9 @@ def parse_args(argv=None):
                     default="latest",
                     help="accepted for compatibility; dataset artifact "
                          "versioning rides --upload-dataset")
+    ap.add_argument("--bucket", type=str, default="",
+                    help="the reference's gsutil upload bucket: accepted, "
+                         "nothing is uploaded (logged)")
     return ap.parse_args(argv)
 
 
@@ -244,6 +247,9 @@ def run(args) -> dict:
         logger.info("--sync-bn: always on, BatchNorm statistics are the "
                     "global batch's under data parallelism "
                     "(parallel/mesh.py)")
+    if getattr(args, "bucket", ""):
+        logger.info(f"--bucket {args.bucket}: gsutil upload unsupported; "
+                    f"checkpoints stay local")
     init_seeds(args.seed)
     save_dir = None
     if main:

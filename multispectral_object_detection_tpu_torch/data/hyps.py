@@ -1,15 +1,18 @@
 """Hyperparameter presets: the reference hyp.scratch.yaml and hyp.finetune.yaml,
 and the evolution bounds (key -> (mutation scale, lower, upper)).
 
-The port's copy of multispectral_object_detection_tpu/data/hyps.py. PyYAML
-is imported only to read a YAML path; ``dump_flat_yaml`` writes the flat
-maps of a run directory (``hyp.yaml``, ``opt.yaml``) without it.
+The port's copy of multispectral_object_detection_tpu/data/hyps.py.
+``dump_flat_yaml`` writes the flat maps of a run directory (``hyp.yaml``,
+``opt.yaml``) without PyYAML and ``load_flat_yaml`` reads them back;
+``read_yaml`` reads a YAML file through PyYAML where it is installed, else
+through ``load_flat_yaml``.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 from typing import Dict
 
 HYP_SCRATCH: Dict[str, float] = {
@@ -62,11 +65,21 @@ def load_hyp(spec) -> Dict[str, float]:
     if isinstance(spec, dict):
         out.update(spec)
         return out
-    import yaml  # only for YAML paths
-
-    with open(spec) as f:
-        out.update(yaml.safe_load(f) or {})
+    out.update(read_yaml(spec) or {})
     return out
+
+
+def read_yaml(path):
+    """A YAML file's contents: through PyYAML where it imports, else (a
+    machine without it) through ``load_flat_yaml``, which reads a map of
+    scalars and lists of scalars and raises ValueError on anything else."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        return load_flat_yaml(text)
+    return yaml.safe_load(text)
 
 
 def _scalar(v) -> str:
@@ -98,3 +111,118 @@ def dump_flat_yaml(d: dict) -> str:
         else:
             lines.append(f"{k}: {_scalar(v)}")
     return "\n".join(lines) + "\n"
+
+
+# YAML 1.1's plain scalars, as PyYAML's safe loader resolves them
+_NULL = re.compile(r"~|null|Null|NULL|")
+_TRUE = re.compile(r"yes|Yes|YES|true|True|TRUE|on|On|ON")
+_FALSE = re.compile(r"no|No|NO|false|False|FALSE|off|Off|OFF")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?")
+_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)")
+_NAN = re.compile(r"\.(?:nan|NaN|NAN)")
+
+
+def _split_comment(v: str) -> str:
+    """A scalar without its trailing `` # comment`` (outside quotes)."""
+    quote, escaped = None, False
+    for i, ch in enumerate(v):
+        if escaped:
+            escaped = False
+        elif quote:
+            escaped = ch == "\\" and quote == '"'
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or v[i - 1] in " \t"):
+            return v[:i].strip()
+    return v.strip()
+
+
+def _parse_scalar(v: str):
+    v = v.strip()
+    if v.startswith('"'):
+        return json.loads(v)  # dump_flat_yaml's strings are JSON strings
+    if v.startswith("'"):
+        if len(v) < 2 or not v.endswith("'"):
+            raise ValueError(f"unterminated quoted scalar {v!r}")
+        return v[1:-1].replace("''", "'")
+    if v[:1] in ("[", "{", "&", "*", "!", "|", ">"):
+        raise ValueError(f"not a flat YAML scalar: {v!r}")
+    if _NULL.fullmatch(v):
+        return None
+    if _TRUE.fullmatch(v):
+        return True
+    if _FALSE.fullmatch(v):
+        return False
+    if _INT.fullmatch(v):
+        return int(v.replace("_", ""))
+    if _FLOAT.fullmatch(v):
+        return float(v.replace("_", ""))
+    m = _INF.fullmatch(v)
+    if m:
+        return float(f"{m.group(1)}inf")
+    if _NAN.fullmatch(v):
+        return float("nan")
+    return v
+
+
+def _flow_list(v: str) -> list:
+    """``[a, 'b', "c"]``: a flow sequence of scalars."""
+    body = v[1:-1].strip()
+    if not body:
+        return []
+    items, cur, quote = [], "", None
+    for ch in body:
+        if quote:
+            cur += ch
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+            cur += ch
+        elif ch == ",":
+            items.append(cur)
+            cur = ""
+        elif ch in "[]{}":
+            raise ValueError(f"nested flow collection in {v!r}")
+        else:
+            cur += ch
+    items.append(cur)
+    return [_parse_scalar(x) for x in items]
+
+
+def load_flat_yaml(text: str) -> dict:
+    """The inverse of ``dump_flat_yaml``: a YAML map of scalars and lists of
+    scalars (block ``- x`` items or a flow ``[x, y]``), with comments, to
+    the values PyYAML's ``safe_load`` gives. Raises ValueError on any other
+    YAML (nesting, anchors, multi-line scalars)."""
+    out: dict = {}
+    key, items = None, None  # the last key with no value on its line
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = raw.rstrip()
+        stripped = line.lstrip()
+        if not stripped or stripped.startswith("#") or line in ("---", "..."):
+            continue
+        if stripped == "-" or stripped.startswith("- "):
+            if key is None:
+                raise ValueError(f"line {n}: a list item outside a list")
+            if items is None:
+                items = out[key] = []
+            items.append(_parse_scalar(_split_comment(stripped[1:])))
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"line {n}: nested YAML is not a flat map")
+        k, sep, v = line.partition(":")
+        if not sep or (v and v[0] not in " \t"):
+            raise ValueError(f"line {n}: expected 'key: value', got {line!r}")
+        k = _parse_scalar(k)
+        if k in out:
+            raise ValueError(f"line {n}: duplicate key {k!r}")
+        v = _split_comment(v)
+        key, items = (k, None) if not v else (None, None)
+        out[k] = None if not v else _flow_list(v) if v.startswith("[") \
+            and v.endswith("]") else _parse_scalar(v)
+    return out

@@ -1,10 +1,12 @@
 """PyTorch port, guards: the package stands alone (no JAX, no flax, no
 optax, nothing of the JAX package, no yaml, cv2, PIL or flask at import,
-the training modules included), its entry points (``Detector`` and its
+the training modules and the tools included; the tools name no TPU
+figure), its entry points (``Detector`` and its
 ``__call__``, the detect CLI, the REST service)
 default to CUDA and refuse to fall back to the CPU, and chip_smoke.py fails
 without a GPU."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +46,17 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 51  # every module of the package
+    assert int(r.stdout.split()[-1]) >= 66  # every module of the package
+
+
+def test_tools_hold_no_tpu_figure():
+    """The port's tools state the card's numbers only: no TPU peak or other
+    TPU figure (the JAX tools' v5e peak) in their sources."""
+    tools = ROOT / "multispectral_object_detection_tpu_torch" / "tools"
+    found = {p.name: m.group(0) for p in sorted(tools.glob("*.py"))
+             for m in [re.search(r"\bTPU\b|v5e|197e12|197 TFLOP",
+                                 p.read_text())] if m}
+    assert len(list(tools.glob("*.py"))) == 6 and not found, found
 
 
 def _require_no_cuda():
