@@ -41,9 +41,14 @@ failure raises and the script exits non-zero:
    ``--ensemble-mode cat`` and ``ds``, ``--int8`` and ``--task speed``.
    Checks finite metrics over all 64 images, hybrid mAP50 and mAP >= 0.95,
    the K1 launches of every run's forwards, and one eval batch's decoded
-   outputs through the kernels against the plain stack; prints an
-   ``{"eval": {...}}`` line (s per image, forward / NMS / matching ms per
-   image, NMS candidates per image and iterations per batch, mAP50, mAP).
+   outputs through the kernels against the plain stack. Then a JPEG leg
+   with PIL and cv2 unimportable: ``val`` over 16 LLVIP-sized JPEG pairs
+   made of the committed fixtures (tests/data/jpeg, with the labels of the
+   generator and seed that made them): the scan's counters (0 corrupt),
+   finite metrics, K1's launches and one batch against the plain stack.
+   Prints an ``{"eval": {...}}`` line (s per image, forward / NMS /
+   matching ms per image, NMS candidates per image and iterations per
+   batch, mAP50, mAP; the JPEG leg under ``jpeg``).
 6. the serving path: a ``Detector`` built from a seeded random-weight
    ``.pt`` of the l-scale model (BN folded, bf16, conf 0.01) serves
    ``Detector.__call__`` on 16 PNG pairs at FLIR's 640x512 (letterbox pad
@@ -55,7 +60,12 @@ failure raises and the script exits non-zero:
    1280x1024 batch, timed; the native JPEG decode (libjpeg where the
    machine has ``jpeglib.h``, else nvJPEG where it has CUDA's
    ``nvjpeg.h``) of the committed fixtures (tests/data/jpeg) against
-   cv2's stored decode; the detect CLI headless (``--nosave --save-txt``)
+   cv2's stored decode, and the variant fixtures (tests/data/jpeg/variants:
+   EXIF orientations 1-8, progressive, gray, CMYK) through ``imread``
+   against cv2.imread's stored decodes; an orientation-6 pair through
+   ``Detector.__call__`` against the same pixels served pre-rotated as PNG;
+   ``apply_classifier`` on one served image with a seeded stand-in
+   classifier; the detect CLI headless (``--nosave --save-txt``)
    and saving on 16 LLVIP-sized PNG pairs and 16 JPEG pairs
    (``--batch-size 16``), its label files against ``Detector.__call__``'s,
    fps and fps_steady; the REST service on a loopback port, one PNG pair
@@ -125,10 +135,13 @@ failure raises and the script exits non-zero:
    crop per label row, equal to its source region); (e)
    ``export_torch_ckpt`` on a pickled reference-style checkpoint of the l
    model (its class in a ``--repo`` directory) to a ``.pt``, bit-equal to
-   the source and serving the same boxes through ``Detector``; a
+   the source and serving the same boxes through ``Detector``; (f) the
+   train CLI with ``--cfg`` the reference-grammar YAML of the l model
+   (tests/data/yolov5l_fusion_transformerx3.yaml) and PyYAML unimportable,
+   one step and its eval (K1's 168 launches per eval forward); a
    ``{"tools": {...}}`` line.
-12. a ``{"kernels": [...]}`` line, the card line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+12. a ``{"kernels": [...]}`` line, the script's seconds in all, the card
+   line, and the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -162,6 +175,8 @@ IMG, BATCH, REQUESTS = 640, 16, 3
 # eval phase: LLVIP-shaped synthetic pairs (h, w), at the test CLI's defaults
 EVAL_IMAGES, EVAL_HW, EVAL_BATCH = 64, (512, 640), 32
 EVAL_MIN_HYBRID_MAP = 0.95
+EVAL_JPEG_PAIRS = 16  # phase 5's JPEG leg, from the committed fixtures
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 # serving phase: FLIR's and LLVIP's frames (h, w), 16 pairs per call; random
 # weights score about 0.02 (the Detect head's objectness prior), so a
 # threshold of 0.01 leaves detections to compare
@@ -544,8 +559,6 @@ def phase_eval(torch, device):
         make_paired_dataset)
     from multispectral_object_detection_tpu_torch.models.configs import (
         get_config)
-    from multispectral_object_detection_tpu_torch.models.fusion import (
-        CrossModalFusion)
     from multispectral_object_detection_tpu_torch.models.model import (
         build_model, init_weights)
     from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
@@ -629,26 +642,8 @@ def phase_eval(torch, device):
         # and what can hold the hybrid mAP below 1: model scores of
         # exactly 1.0 (ranked ahead of the injected labels) and
         # same-class ground truth overlapping above the NMS IoU
-        args = test_cli.parse_args(["--data", "dict", "--weights", ckpts[0]])
-        models, fwd = test_cli.build_forward(args, data, device)
-        ds, loader = test_cli.make_loader(args, data, IMG, 1)
-        batch = next(iter(loader))
-        rgb = torch.from_numpy(batch["rgb"]).to(device)
-        ir = torch.from_numpy(batch["ir"]).to(device)
-        dets_k = fwd(rgb, ir)[0]
-        stages = [m for m in models[0].modules()
-                  if isinstance(m, CrossModalFusion)]
-        for m in stages:
-            m.stack_fn = cs.fused_cft_stack_plain
-        dets_p = fwd(rgb, ir)[0]
-        for m in stages:
-            m.stack_fn = cs.fused_cft_stack
-        torch.cuda.synchronize()
-        rel = rel_err(dets_k, dets_p)[0]
-        print(f"eval: decoded outputs of a {tuple(dets_k.shape)} batch at "
-              f"{tuple(rgb.shape[1:3])} px, kernels vs plain stack: "
-              f"rel={rel:.3e} tol={TOL_BF16_MODEL:.1e}")
-        check(rel <= TOL_BF16_MODEL, f"eval decoded outputs disagree: {rel:.3e}")
+        ds, dets_k, dets_p = _eval_batch_kernels_vs_plain(
+            torch, device, data, ckpts[0], "eval")
         # NMS at the eval protocol on that batch: host wall against the
         # device time of its kernels
         def nms():
@@ -684,11 +679,130 @@ def phase_eval(torch, device):
               f"ground-truth pairs overlapping above IoU 0.6: {overlaps}")
         out["save-hybrid"].update(saturated_scores_batch0=saturated,
                                   gt_pairs_iou_above_0_6=overlaps)
-        del models, fwd, dets_k, dets_p
+        del dets_k, dets_p
         torch.cuda.empty_cache()
+        out["jpeg"] = _eval_jpeg(torch, device, root, ckpts[0], per_forward)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _eval_batch_kernels_vs_plain(torch, device, data: dict, ckpt: str,
+                                 what: str) -> tuple:
+    """The test CLI's first eval batch of ``data`` through the kernels and
+    through the plain stack, decoded outputs within TOL_BF16_MODEL.
+    Returns the dataset and both outputs."""
+    from multispectral_object_detection_tpu_torch.cli import test_cli
+    from multispectral_object_detection_tpu_torch.models.fusion import (
+        CrossModalFusion)
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    args = test_cli.parse_args(["--data", "dict", "--weights", ckpt])
+    models, fwd = test_cli.build_forward(args, data, device)
+    ds, loader = test_cli.make_loader(args, data, IMG, 1)
+    batch = next(iter(loader))
+    rgb = torch.from_numpy(batch["rgb"]).to(device)
+    ir = torch.from_numpy(batch["ir"]).to(device)
+    dets_k = fwd(rgb, ir)[0]
+    stages = [m for m in models[0].modules()
+              if isinstance(m, CrossModalFusion)]
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack_plain
+    dets_p = fwd(rgb, ir)[0]
+    for m in stages:
+        m.stack_fn = cs.fused_cft_stack
+    torch.cuda.synchronize()
+    rel = rel_err(dets_k, dets_p)[0]
+    print(f"{what}: decoded outputs of a {tuple(dets_k.shape)} batch at "
+          f"{tuple(rgb.shape[1:3])} px, kernels vs plain stack: "
+          f"rel={rel:.3e} tol={TOL_BF16_MODEL:.1e}")
+    check(rel <= TOL_BF16_MODEL, f"{what} decoded outputs disagree: "
+          f"{rel:.3e}")
+    return ds, dets_k, dets_p
+
+
+@contextlib.contextmanager
+def _without(*modules):
+    """``modules`` made unimportable for the block, as on the card, whether
+    they are installed or not."""
+    saved = {m: sys.modules.get(m, "absent") for m in modules}
+    for m in modules:
+        sys.modules[m] = None
+    try:
+        yield
+    finally:
+        for m, v in saved.items():
+            if v == "absent":
+                del sys.modules[m]
+            else:
+                sys.modules[m] = v
+
+
+def _eval_jpeg(torch, device, root: Path, ckpt: str, per_forward: dict):
+    """Phase 5's JPEG leg: the test CLI (val, the CLI defaults) over
+    EVAL_JPEG_PAIRS pairs made of the committed LLVIP-sized fixtures, with
+    the labels of the generator and seed that made them, PIL and cv2
+    unimportable: the scan's counters (0 corrupt), finite metrics, K1's
+    launches per forward and one batch through the kernels against the
+    plain stack."""
+    from multispectral_object_detection_tpu_torch.cli import test_cli
+    from multispectral_object_detection_tpu_torch.data import native
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    check(native.jpeg_available(), "no JPEG decoder builds on this machine "
+          "(jpeglib.h or CUDA's nvjpeg.h)")
+    t0 = time.perf_counter()
+    # tools/make_jpeg_fixtures.py: llvip_*_{0,1}.jpg from this generator
+    src = make_paired_dataset(str(root / "jpeg_labels"), n_images=2, nc=1,
+                              seed=0, img_hw=(1024, 1280))[0]
+    labels = sorted(Path(src).parent.joinpath("labels").glob("*.txt"))
+    jroot = root / "jpeg"
+    for side in ("rgb", "ir"):
+        (jroot / side / "images").mkdir(parents=True)
+    (jroot / "rgb" / "labels").mkdir()
+    for k in range(EVAL_JPEG_PAIRS):
+        for side in ("rgb", "ir"):
+            shutil.copy(JPEG_DIR / f"llvip_{side}_{k % 2}.jpg",
+                        jroot / side / "images" / f"{k:06d}.jpg")
+        shutil.copy(labels[k % 2], jroot / "rgb" / "labels" / f"{k:06d}.txt")
+    data = {"val_rgb": str(jroot / "rgb" / "images"),
+            "val_ir": str(jroot / "ir" / "images"), "nc": 1,
+            "names": ["person"]}
+    setup = time.perf_counter() - t0
+    with _without("PIL", "cv2"):
+        args = test_cli.parse_args(["--data", "dict", "--weights", ckpt,
+                                    "--project", str(root / "runs")])
+        args.data = data
+        cs.reset_launches()
+        k2.reset_launches()
+        t0 = time.perf_counter()
+        res = test_cli.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        forwards = -(-EVAL_JPEG_PAIRS // EVAL_BATCH)
+        want = {k: v * forwards for k, v in per_forward.items()}
+        check(got == want, f"eval jpeg: launch counts {got} != {want}")
+        ds = _eval_batch_kernels_vs_plain(torch, device, data, ckpt,
+                                          "eval jpeg")[0]
+    keys = ("map50", "map", "mp", "mr", "t_infer_ms", "t_nms_ms")
+    check(ds.scan_counters == {"found": EVAL_JPEG_PAIRS, "missing": 0,
+                               "empty": 0, "corrupt": 0},
+          f"eval jpeg: scan counters {ds.scan_counters}")
+    check(res["seen"] == EVAL_JPEG_PAIRS
+          and all(math.isfinite(float(res[k])) for k in keys),
+          f"eval jpeg: {res}")
+    out = {"backend": native.jpeg_backend(), "pairs": EVAL_JPEG_PAIRS,
+           "s_per_image": wall / res["seen"], "s_setup": setup,
+           "scan": ds.scan_counters, **{k: res[k] for k in keys}}
+    print(f"eval jpeg: {EVAL_JPEG_PAIRS} LLVIP-sized JPEG pairs "
+          f"({native.jpeg_backend()}, no PIL, no cv2), {forwards} forwards, "
+          f"launches {got}: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
 
 
 def _label_lines(boxes, classes, h0, w0):
@@ -712,6 +826,63 @@ def _close_lines(got, want, tol):
                                for a, b in zip(g[1:], w[1:])) > tol:
             return False
     return True
+
+
+def _jpeg_variants(root: Path, det) -> dict:
+    """Phase 6: the variant fixtures (EXIF orientations 1-8, a big-endian
+    EXIF block, progressive, gray, CMYK) through ``imread`` against
+    cv2.imread's stored decodes (CMYK: its decode, or a refusal that names
+    it); and an orientation-6 pair through ``Detector.__call__`` against
+    the same pixels served pre-rotated as PNG."""
+    import numpy as np
+
+    from multispectral_object_detection_tpu_torch.data.imageio import (
+        imread, write_png)
+
+    vdir = JPEG_DIR / "variants"
+    ref = np.load(vdir / "decode.npz")
+    out = {}
+    for p in sorted(vdir.glob("*.jpg")):
+        try:
+            img = imread(p)
+        except ValueError as e:
+            check(p.stem == "cmyk" and "CMYK JPEG" in str(e),
+                  f"{p.name}: {e}")
+            out[p.stem] = {"refused": str(e)}
+            continue
+        want = ref[p.stem]
+        check(img.shape == want.shape, f"{p.name}: shape {img.shape} != "
+              f"cv2's {want.shape}")
+        d = np.abs(img.astype(int) - want.astype(int))
+        out[p.stem] = {"mean_abs_diff": float(d.mean()),
+                       "max_abs_diff": float(d.max())}
+    worst = max(v.get("mean_abs_diff", 0.0) for v in out.values())
+    print("jpeg variants through imread vs cv2.imread's decodes: "
+          + ", ".join(f"{k} " + (f"{v['mean_abs_diff']:.4f}/"
+                                 f"{v['max_abs_diff']:.0f}" if "refused"
+                                 not in v else "refused")
+                      for k, v in out.items())
+          + f" (mean/max |d|; bound: mean < {JPEG_MEAN_TOL})")
+    check(worst < JPEG_MEAN_TOL, f"a variant decode differs from cv2's: "
+          f"mean {worst}")
+    jpgs = [str(vdir / "orient_6.jpg"), str(vdir / "orient_6_mm.jpg")]
+    pngs = []
+    for path, side in zip(jpgs, ("rgb", "ir")):
+        pngs.append(str(root / f"rotated_{side}.png"))
+        write_png(pngs[-1], imread(path))
+    a, b = det(jpgs[:1], jpgs[1:]), det(pngs[:1], pngs[1:])
+    diff = float(np.abs(a.boxes[0] - b.boxes[0]).max(initial=0.0)) \
+        if a.boxes[0].shape == b.boxes[0].shape else float("inf")
+    check(a.images[0].shape == (48, 32, 3) and len(a.boxes[0]) > 0
+          and np.array_equal(a.classes[0], b.classes[0]) and diff <= 1e-3,
+          f"orientation-6 pair: {a.images[0].shape}, {len(a.boxes[0])} vs "
+          f"{len(b.boxes[0])} boxes, max |d| {diff}")
+    print(f"Detector.__call__ on an orientation-6 JPEG pair (48x32 stored, "
+          f"32x48 served): {len(a.boxes[0])} boxes, max |d| {diff:.2e} px "
+          f"from the same pixels served pre-rotated as PNG")
+    out["orient_6_detector"] = {"boxes": len(a.boxes[0]),
+                                "max_abs_diff_px": diff}
+    return out
 
 
 def phase_serving(torch, device):
@@ -743,7 +914,7 @@ def phase_serving(torch, device):
         letterbox_batch)
     from multispectral_object_detection_tpu_torch.serve import rest_api
     from multispectral_object_detection_tpu_torch.utils.general import (
-        rescale_to_native)
+        apply_classifier, rescale_to_native)
 
     per_forward = {"cft_layernorm": 48, "cft_gemm_bias": 24,
                    "cft_gemm_gelu": 24, "cft_gemm_residual": 48,
@@ -840,6 +1011,32 @@ def phase_serving(torch, device):
                 "pairs_per_s": SERVE_BATCH * 1e3 / sum(ms.values()),
                 "k1_launches": launches, "detections": sum(n_det)}
 
+        # the second-stage classifier filter on the last call's first image,
+        # a seeded stand-in classifier (a projection of each crop's mean
+        # colour onto 2 classes)
+        proj = np.random.default_rng(0).standard_normal((3, 2))
+        crops = []
+
+        def classify(ims):
+            crops.append(ims)
+            return ims.mean(axis=(1, 2)) @ proj
+
+        t0 = time.perf_counter()
+        keep = apply_classifier(res.boxes[0], res.classes[0], raw[0],
+                                classify)
+        cls_ms = 1e3 * (time.perf_counter() - t0)
+        n = len(res.boxes[0])
+        check(n > 0 and keep.shape == (n,) and keep.dtype == bool
+              and crops[0].shape == (n, 224, 224, 3)
+              and bool(np.isfinite(crops[0]).all())
+              and 0 <= crops[0].min() <= crops[0].max() <= 1,
+              f"apply_classifier: {n} boxes, mask {keep.shape}")
+        print(f"apply_classifier: {n} boxes of a served LLVIP-sized image "
+              f"cut out, resized to 224 and classified in {cls_ms:.1f} ms; "
+              f"{int(keep.sum())} kept")
+        out["apply_classifier"] = {"boxes": n, "kept": int(keep.sum()),
+                                   "ms": cls_ms}
+
         # the device letterbox against the host one, LLVIP-sized batch
         raws = np.stack(raw)
         t0 = time.perf_counter()
@@ -866,39 +1063,36 @@ def phase_serving(torch, device):
                                   "max_abs_diff": max_d}
 
         # JPEG: the committed fixtures against cv2's decode
-        jpeg_dir = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
-        cli_sets = {"png": sets["llvip"]}
-        if native.jpeg_available():
-            ref = np.load(jpeg_dir / "decode.npz")
-            worst_mean = worst_max = 0.0
-            for p in sorted(jpeg_dir.glob("*.jpg")):
-                img = native.decode_jpeg(p.read_bytes())
-                for got, want in ((img[::8, ::8], ref[f"{p.stem}_sub"]),) + (
-                        ((img, ref["small_rgb"]),) if p.stem == "small_rgb"
-                        else ()):
-                    check(got.shape == want.shape, f"{p.name}: shape")
-                    d = np.abs(got.astype(int) - want.astype(int))
-                    worst_mean = max(worst_mean, float(d.mean()))
-                    worst_max = max(worst_max, float(d.max()))
-            print(f"jpeg: {native.jpeg_backend()} decode of the 6 fixtures "
-                  f"vs cv2's: worst "
-                  f"mean |d| {worst_mean:.4f}, max |d| {worst_max:.0f} "
-                  f"(bound: mean < {JPEG_MEAN_TOL}; 0 = cv2's pixels)")
-            check(worst_mean < JPEG_MEAN_TOL, "JPEG decode differs from cv2")
-            out["jpeg_decode"] = {"backend": native.jpeg_backend(),
-                                  "mean_abs_diff": worst_mean,
-                                  "max_abs_diff": worst_max}
-            jroot = root / "jpeg"
-            for side in ("rgb", "ir"):
-                (jroot / side).mkdir(parents=True)
-                for k in range(SERVE_BATCH):
-                    shutil.copy(jpeg_dir / f"llvip_{side}_{k % 2}.jpg",
-                                jroot / side / f"{k:06d}.jpg")
-            cli_sets["jpeg"] = (str(jroot / "rgb"), str(jroot / "ir"))
-        else:
-            print("jpeg: neither jpeglib.h nor CUDA's nvjpeg.h on this "
-                  "machine: JPEG decode unverified on the card; the JPEG "
-                  "legs are left out")
+        check(native.jpeg_available(), "no JPEG decoder builds on this "
+              "machine (jpeglib.h or CUDA's nvjpeg.h)")
+        ref = np.load(JPEG_DIR / "decode.npz")
+        worst_mean = worst_max = 0.0
+        for p in sorted(JPEG_DIR.glob("*.jpg")):
+            img = native.decode_jpeg(p.read_bytes())
+            for got, want in ((img[::8, ::8], ref[f"{p.stem}_sub"]),) + (
+                    ((img, ref["small_rgb"]),) if p.stem == "small_rgb"
+                    else ()):
+                check(got.shape == want.shape, f"{p.name}: shape")
+                d = np.abs(got.astype(int) - want.astype(int))
+                worst_mean = max(worst_mean, float(d.mean()))
+                worst_max = max(worst_max, float(d.max()))
+        print(f"jpeg: {native.jpeg_backend()} decode of the 6 fixtures "
+              f"vs cv2's: worst "
+              f"mean |d| {worst_mean:.4f}, max |d| {worst_max:.0f} "
+              f"(bound: mean < {JPEG_MEAN_TOL}; 0 = cv2's pixels)")
+        check(worst_mean < JPEG_MEAN_TOL, "JPEG decode differs from cv2")
+        out["jpeg_decode"] = {"backend": native.jpeg_backend(),
+                              "mean_abs_diff": worst_mean,
+                              "max_abs_diff": worst_max}
+        out["jpeg_variants"] = _jpeg_variants(root, det)
+        jroot = root / "jpeg"
+        for side in ("rgb", "ir"):
+            (jroot / side).mkdir(parents=True)
+            for k in range(SERVE_BATCH):
+                shutil.copy(JPEG_DIR / f"llvip_{side}_{k % 2}.jpg",
+                            jroot / side / f"{k:06d}.jpg")
+        cli_sets = {"png": sets["llvip"],
+                    "jpeg": (str(jroot / "rgb"), str(jroot / "ir"))}
 
         # the detect CLI, headless and saving, against Detector.__call__:
         # LLVIP's frame shrinks by exactly 2 to 640 px, where the headless
@@ -2709,15 +2903,8 @@ def _dataset_11d(tmp: Path) -> dict:
     splits = dt.autosplit(str(root))
     counts = {k: len(v) for k, v in splits.items()}
     check(sum(counts.values()) == 2 * EVAL_IMAGES, f"autosplit: {counts}")
-    saved = sys.modules.get("cv2", "absent")
-    sys.modules["cv2"] = None  # the card's route, whether cv2 is there or not
-    try:
+    with _without("cv2"):  # the card's route, whether cv2 is there or not
         crops = dt.extract_boxes(str(root))
-    finally:
-        if saved == "absent":
-            del sys.modules["cv2"]
-        else:
-            sys.modules["cv2"] = saved
     rows = differ = 0
     for src in sorted((root / "rgb" / "images").glob("*.png")):
         lab, _ = read_label_file(image_to_label_path(str(src)))
@@ -2824,6 +3011,47 @@ def _import_11e(torch, device, tmp: Path) -> dict:
             "valid": int(a.valid.sum())}
 
 
+def _model_yaml_11f(torch, tmp: Path) -> dict:
+    """11f: the train CLI with ``--cfg`` the reference-grammar YAML of the
+    l model (tests/data), PyYAML unimportable: one epoch of one step
+    (TRAIN_BATCH synthetic pairs at TRAIN_IMG) and its eval, K1's 168
+    launches per eval forward."""
+    from multispectral_object_detection_tpu_torch.cli import train_cli
+    from multispectral_object_detection_tpu_torch.data.synthetic import (
+        make_paired_dataset)
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+
+    cfg = Path(__file__).resolve().parent / "tests" / "data" / \
+        "yolov5l_fusion_transformerx3.yaml"
+    rgb, ir = make_paired_dataset(str(tmp / "yaml_data"),
+                                  n_images=TRAIN_BATCH, img_size=TRAIN_IMG,
+                                  nc=1, seed=9)
+    with _without("yaml"):
+        args = train_cli.parse_args(
+            ["--data", "unused", "--cfg", str(cfg), "--epochs", "1",
+             "--img-size", str(TRAIN_IMG), "--batch-size", str(TRAIN_BATCH),
+             "--nosave", "--project", str(tmp / "yaml_runs")])
+        args.data = {"train_rgb": rgb, "train_ir": ir, "val_rgb": rgb,
+                     "val_ir": ir, "nc": 1, "names": ["a"]}
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        r = train_cli.run(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    k1 = sum(cs.LAUNCHES.values())
+    line = (Path(r["save_dir"]) / "results.txt").read_text().strip()
+    print(f"  11f train CLI --cfg {cfg.name} without PyYAML, 1 step of "
+          f"l@{TRAIN_IMG} bs{TRAIN_BATCH} and its eval in {secs:.1f} s: "
+          f"{line}")
+    check("mAP50" in line and all(math.isfinite(r[k]) for k in
+                                  ("mp", "mr", "map50", "map")),
+          f"11f: {r}")
+    check(r["eval_forwards"] > 0 and k1 == 168 * r["eval_forwards"],
+          f"11f: K1 launches {k1} != 168 x {r['eval_forwards']}")
+    return {"s_with_build": secs, "eval_forwards": r["eval_forwards"],
+            "k1_launches": k1, "results": line}
+
+
 def phase_tools(torch, device, card: str, legs: dict, train: dict,
                 run_of_8: dict) -> dict:
     """Phase 11: the port's tools on the card."""
@@ -2836,7 +3064,8 @@ def phase_tools(torch, device, card: str, legs: dict, train: dict,
                         ("resume", lambda: _resume_11c(torch, run_of_8)),
                         ("dataset_tools", lambda: _dataset_11d(tmp)),
                         ("ckpt_import", lambda: _import_11e(torch, device,
-                                                           tmp))):
+                                                           tmp)),
+                        ("model_yaml", lambda: _model_yaml_11f(torch, tmp))):
             t0 = time.perf_counter()
             out[key] = fn()
             out[key]["seconds"] = time.perf_counter() - t0
@@ -2861,6 +3090,7 @@ def main() -> int:
     from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
+    t_start = time.perf_counter()
     device = torch.device("cuda:0")
     card = card_line()
     print(card)
@@ -2903,8 +3133,9 @@ def main() -> int:
         print(f"phase 10: the hub zoo, Grad-CAM, export, profiling, plots and "
               f"loggers in {tail['seconds']:.1f} s")
         tools = phase_tools(torch, device, card, legs, train, run_of_8)
-        print(f"phase 11: profile_model, mfu, resume_runs, dataset_tools and "
-              f"export_torch_ckpt in {tools['seconds']:.1f} s")
+        print(f"phase 11: profile_model, mfu, resume_runs, dataset_tools, "
+              f"export_torch_ckpt and a model YAML path in "
+              f"{tools['seconds']:.1f} s")
     finally:
         shutil.rmtree(run_of_8["tmp"], ignore_errors=True)
 
@@ -2923,6 +3154,7 @@ def main() -> int:
     print(json.dumps({"long_tail": tail}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": out}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

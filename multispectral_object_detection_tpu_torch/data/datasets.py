@@ -7,12 +7,13 @@ augmentations' warps and HSV tables; data/augment.py):
 
 - image lists from a directory, a glob-free listing file or one file;
   labels from ``images/`` -> ``labels/`` txt files of the RGB side;
-- a corrupt-tolerant scan: image header (``.png`` through
-  ``data/imageio``, other formats through PIL with the EXIF rotation),
+- a corrupt-tolerant scan: image header (PNG and JPEG through
+  ``data/imageio``, other formats through PIL) with the EXIF rotation,
   size >= 10 px, label validation; bad pairs are skipped with a warning;
 - an optional ``.npz`` scan cache keyed by paths, file sizes and ``nc``
   (the JAX package's key leaves ``nc`` out, so a cache written with
-  another ``nc`` is taken there without its class check);
+  another ``nc`` is taken there without its class check), and the same
+  for label files alone (``load_labels_cached``);
 - letterboxed samples, square or in aspect-ratio buckets (``rect``, pad
   0.5 in the evaluation protocol), and static-shape collation: targets
   padded to ``max_labels`` per image with a validity mask;
@@ -52,7 +53,7 @@ import numpy as np
 from . import native
 from .augment import (augment_hsv, letterbox, load_scaled, load_scaled_pair,
                       mosaic4_pair, random_affine_pair)
-from .imageio import PNG_SIGNATURE, png_size
+from .imageio import PNG_SIGNATURE, is_jpeg, jpeg_info, png_size
 
 logger = logging.getLogger(__name__)
 
@@ -139,19 +140,46 @@ def read_label_file(path: str, nc: Optional[int] = None):
     return lab, segments
 
 
+def _pillow_format(head: bytes) -> Optional[str]:
+    """The format of the other files the scan accepts (IMG_FORMATS), by
+    signature: BMP, TIFF (and DNG) or WebP; None for anything else."""
+    if head[:2] == b"BM":
+        return "BMP"
+    if head[:4] in (b"II*\0", b"MM\0*"):
+        return "TIFF"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    return None
+
+
 def image_size(path: str):
     """(width, height, format) of an image file, checked for integrity:
-    PNG by its own header and chunk CRCs, other formats by PIL's verify,
-    with the EXIF rotation applied to the size."""
+    PNG by its own header and chunk CRCs, JPEG by its markers
+    (``imageio.jpeg_info``, what PIL's open reads), other formats by PIL's
+    verify. The size is swapped for EXIF orientations 6 and 8 only, as the
+    JAX package's ``exif_size`` and the reference do: 5 and 7 transpose the
+    image too, and their size is kept unswapped there, so here as well.
+
+    Without Pillow, a BMP, TIFF or WebP file raises ImportError naming its
+    format (the JAX scan reads it, so it is not dropped), and a file of any
+    other signature is corrupt (ValueError), as it is there."""
     with open(path, "rb") as f:
-        png = f.read(8) == PNG_SIGNATURE
-    if png:
+        head = f.read(12)
+    if head[:8] == PNG_SIGNATURE:
         return png_size(path) + ("png",)
+    if is_jpeg(head):
+        w, h, orientation = jpeg_info(path)[:3]
+        return (h, w, "jpeg") if orientation in (6, 8) else (w, h, "jpeg")
     try:
         from PIL import Image
     except ImportError:
-        raise ImportError(f"{path}: checking a non-PNG image needs Pillow, "
-                          f"which is not installed") from None
+        fmt = _pillow_format(head)
+        if fmt is None:
+            raise ValueError("not a PNG or JPEG file, nor another format "
+                             "the scan reads") from None
+        raise ImportError(f"{path}: a {fmt} image; the scan reads {fmt} "
+                          f"through Pillow, which is not installed (PNG and "
+                          f"JPEG are read without it)") from None
     with Image.open(path) as im:
         im.verify()
         w, h = im.size
@@ -260,15 +288,44 @@ def scan_pair_cached(rgb_files: Sequence[str],
     _log_scan(res["counters"], len(rgb_files), cached=False)
     if cache_path is not None:
         cache_path.parent.mkdir(parents=True, exist_ok=True)
-        lab_arr = np.empty(len(res["labels"]), dtype=object)
-        seg_arr = np.empty(len(res["labels"]), dtype=object)
-        for i, lab in enumerate(res["labels"]):
-            lab_arr[i] = lab
-            seg_arr[i] = res["segments"][i]
-        np.savez(cache_path, hash=key, keep=res["keep"], labels=lab_arr,
-                 segments=seg_arr, shapes=res["shapes"],
+        np.savez(cache_path, hash=key, keep=res["keep"],
+                 labels=_object_array(res["labels"]),
+                 segments=_object_array(res["segments"]),
+                 shapes=res["shapes"],
                  counters=json.dumps(res["counters"]))
     return res
+
+
+def _object_array(items: list) -> np.ndarray:
+    """A 1-D object array of ``items`` (np.asarray would stack equal
+    shapes into one array)."""
+    arr = np.empty(len(items), dtype=object)
+    for i, x in enumerate(items):
+        arr[i] = x
+    return arr
+
+
+def load_labels_cached(img_files: Sequence[str],
+                       cache_dir: Optional[str] = None,
+                       nc: Optional[int] = None) -> List[np.ndarray]:
+    """The (n, 5) float32 label array of each image (``read_label_file``;
+    empty where the file is missing). With ``cache_dir`` they are kept in
+    an ``.npz`` keyed by an md5 of the image and label paths, their file
+    sizes and ``nc``, and read from it while the key holds."""
+    label_files = [image_to_label_path(p) for p in img_files]
+    key = _files_hash(list(img_files) + label_files, extra=f"nc={nc}")
+    cache_path = None
+    if cache_dir:
+        cache_path = Path(cache_dir) / f"labels_{key[:16]}.npz"
+        if cache_path.is_file():
+            z = np.load(cache_path, allow_pickle=True)
+            if str(z.get("hash")) == key:
+                return list(z["labels"])
+    labels = [read_label_file(p, nc)[0] for p in label_files]
+    if cache_path is not None:
+        cache_path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(cache_path, hash=key, labels=_object_array(labels))
+    return labels
 
 
 class PairedDetectionDataset:

@@ -3,7 +3,8 @@ and the evolution bounds (key -> (mutation scale, lower, upper)).
 
 The port's copy of multispectral_object_detection_tpu/data/hyps.py.
 ``dump_flat_yaml`` writes the flat maps of a run directory (``hyp.yaml``,
-``opt.yaml``) without PyYAML and ``load_flat_yaml`` reads them back;
+``opt.yaml``) without PyYAML and ``load_flat_yaml`` reads them back, as it
+reads data YAMLs and the reference's model YAMLs (nested flow sequences);
 ``read_yaml`` reads a YAML file through PyYAML where it is installed, else
 through ``load_flat_yaml``.
 """
@@ -72,7 +73,7 @@ def load_hyp(spec) -> Dict[str, float]:
 def read_yaml(path):
     """A YAML file's contents: through PyYAML where it imports, else (a
     machine without it) through ``load_flat_yaml``, which reads a map of
-    scalars and lists of scalars and raises ValueError on anything else."""
+    scalars and (nested) lists and raises ValueError on anything else."""
     with open(path) as f:
         text = f.read()
     try:
@@ -122,6 +123,15 @@ _FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
                     r"|\.[0-9_]+(?:[eE][-+][0-9]+)?")
 _INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)")
 _NAN = re.compile(r"\.(?:nan|NaN|NAN)")
+# what PyYAML resolves and this reader does not: octal, hex, binary and
+# base-60 numbers, dates and timestamps, the merge and value keys
+_UNREAD = re.compile(
+    r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+"
+    r"|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{2}-[0-9]{2}"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt]|[ \t]+)[0-9]{1,2}:[0-9]{2}"
+    r":[0-9]{2}(?:\.[0-9]*)?(?:[ \t]*(?:Z|[-+][0-9]{1,2}(?::[0-9]{2})?))?"
+    r"|<<|=")
 
 
 def _split_comment(v: str) -> str:
@@ -149,7 +159,8 @@ def _parse_scalar(v: str):
         if len(v) < 2 or not v.endswith("'"):
             raise ValueError(f"unterminated quoted scalar {v!r}")
         return v[1:-1].replace("''", "'")
-    if v[:1] in ("[", "{", "&", "*", "!", "|", ">"):
+    if v[:1] in ("[", "{", "&", "*", "!", "|", ">", "%", "@", "`") or \
+            v.startswith("- ") or v == "-" or ": " in v or v.endswith(":"):
         raise ValueError(f"not a flat YAML scalar: {v!r}")
     if _NULL.fullmatch(v):
         return None
@@ -166,63 +177,161 @@ def _parse_scalar(v: str):
         return float(f"{m.group(1)}inf")
     if _NAN.fullmatch(v):
         return float("nan")
+    if _UNREAD.fullmatch(v):
+        raise ValueError(f"a scalar PyYAML reads as a number, date or key "
+                         f"and this reader does not: {v!r}")
     return v
 
 
-def _flow_list(v: str) -> list:
-    """``[a, 'b', "c"]``: a flow sequence of scalars."""
-    body = v[1:-1].strip()
-    if not body:
-        return []
-    items, cur, quote = [], "", None
-    for ch in body:
-        if quote:
-            cur += ch
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-            cur += ch
-        elif ch == ",":
-            items.append(cur)
-            cur = ""
-        elif ch in "[]{}":
-            raise ValueError(f"nested flow collection in {v!r}")
-        else:
-            cur += ch
-    items.append(cur)
-    return [_parse_scalar(x) for x in items]
+class _Flow:
+    """A flow sequence (``[a, [b, 'c'], "d"]``, nested to any depth) read
+    from ``text``, the lines of the file from where it opens joined by
+    newlines, comments taken off; ``line0`` is the first one's number."""
+
+    def __init__(self, text: str, line0: int):
+        self.text, self.pos, self.line0 = text, 0, line0
+
+    def error(self, what: str) -> ValueError:
+        n = self.line0 + self.text.count("\n", 0, self.pos)
+        return ValueError(f"line {n}: {what}")
+
+    def skip_space(self) -> None:
+        while self.pos < len(self.text) and self.text[self.pos] in " \t\n":
+            self.pos += 1
+
+    def peek(self) -> str:
+        return self.text[self.pos:self.pos + 1]
+
+    def sequence(self) -> list:
+        self.pos += 1  # [
+        items = []
+        while True:
+            self.skip_space()
+            if self.peek() == "]":
+                self.pos += 1
+                return items
+            items.append(self.node())
+            self.skip_space()
+            if self.peek() == ",":
+                self.pos += 1
+            elif self.peek() != "]":
+                raise self.error("expected ',' or ']' in a flow sequence")
+
+    def node(self):
+        c = self.peek()
+        if c == "[":
+            return self.sequence()
+        if c in ("'", '"'):
+            end = self.pos + 1
+            while True:  # '' is an escaped quote in single quotes
+                end = self.text.find(c, end)
+                if end < 0 or "\n" in self.text[self.pos:end]:
+                    raise self.error("a quoted scalar not closed on its line")
+                if c == '"' and self.text[end - 1] == "\\" or \
+                        c == "'" and self.text[end + 1:end + 2] == "'":
+                    end += 1 if c == '"' else 2
+                    continue
+                break
+            tok, self.pos = self.text[self.pos:end + 1], end + 1
+            try:
+                return _parse_scalar(tok)
+            except json.JSONDecodeError:
+                raise self.error(f"a double-quoted scalar JSON does not "
+                                 f"read: {tok}") from None
+        end = self.pos
+        while end < len(self.text) and self.text[end] not in ",[]{}\n":
+            end += 1
+        tok = self.text[self.pos:end].strip()
+        if not tok or ":" in tok or tok[0] in "?#&*!|>%@`{}" or tok == "-" \
+                or tok.startswith("- "):
+            raise self.error(f"not a plain scalar of a flow sequence: "
+                             f"{self.text[self.pos:end + 1]!r}")
+        self.pos = end
+        try:
+            return _parse_scalar(tok)
+        except ValueError as e:
+            raise self.error(str(e)) from None
 
 
-def load_flat_yaml(text: str) -> dict:
-    """The inverse of ``dump_flat_yaml``: a YAML map of scalars and lists of
-    scalars (block ``- x`` items or a flow ``[x, y]``), with comments, to
-    the values PyYAML's ``safe_load`` gives. Raises ValueError on any other
-    YAML (nesting, anchors, multi-line scalars)."""
+def _flow_value(rows: list, i: int, first: str):
+    """The flow sequence that opens ``first`` (the rest of row ``i``),
+    read across the rows after it. Returns it and the index of the row
+    after the one where it closes, whose rest must be blank."""
+    n0 = rows[i][0]
+    flow = _Flow("\n".join([first] + [r[2] for r in rows[i + 1:]]), n0)
+    value = flow.sequence()
+    rest = flow.text[flow.pos:].split("\n", 1)[0]
+    if rest.strip():
+        raise flow.error(f"text after a flow sequence: {rest.strip()!r}")
+    return value, i + 1 + flow.text.count("\n", 0, flow.pos)
+
+
+def load_flat_yaml(text: str):
+    """A YAML map read to the values PyYAML's ``safe_load`` gives, without
+    PyYAML: the inverse of ``dump_flat_yaml``, data YAMLs, and the
+    reference's model YAMLs. Keys at the top level only; their values
+    scalars, block ``- x`` items, or flow sequences nested to any depth and
+    spread over lines (``backbone:`` then ``[[-1, 1, Focus, [64, 3]], ...]``
+    on the lines after it), with comments. None for a text without
+    content, as ``safe_load``. Raises ValueError naming the line on any
+    other YAML (nested maps, flow maps, anchors, multi-line plain or quoted
+    scalars, numbers in a form other than decimal, dates)."""
+    rows = [(n, raw[:1] in (" ", "\t"), _split_comment(raw))
+            for n, raw in enumerate(text.splitlines(), 1)]
     out: dict = {}
     key, items = None, None  # the last key with no value on its line
-    for n, raw in enumerate(text.splitlines(), 1):
-        line = raw.rstrip()
-        stripped = line.lstrip()
-        if not stripped or stripped.startswith("#") or line in ("---", "..."):
+    i, started, ended = 0, False, False  # by content; by a "..." line
+    while i < len(rows):
+        n, indented, line = rows[i]
+        if not line:
+            i += 1
             continue
-        if stripped == "-" or stripped.startswith("- "):
+        if ended or (line == "---" and started):
+            raise ValueError(f"line {n}: a second YAML document")
+        started = True
+        if line in ("---", "...") and not indented:
+            ended = line == "..."
+            i += 1
+            continue
+        if line.startswith(("---", "...")) and not indented:
+            raise ValueError(f"line {n}: a document marker with content")
+        if line == "-" or line.startswith("- "):
             if key is None:
                 raise ValueError(f"line {n}: a list item outside a list")
             if items is None:
                 items = out[key] = []
-            items.append(_parse_scalar(_split_comment(stripped[1:])))
+            v = line[1:].strip()
+            if v.startswith("["):
+                value, i = _flow_value(rows, i, v)
+            else:
+                value, i = _parse_scalar_at(v, n), i + 1
+            items.append(value)
             continue
-        if line[0] in " \t":
+        if indented and line.startswith("[") and key is not None \
+                and items is None:
+            out[key], i = _flow_value(rows, i, line)
+            key = None
+            continue
+        if indented:
             raise ValueError(f"line {n}: nested YAML is not a flat map")
         k, sep, v = line.partition(":")
         if not sep or (v and v[0] not in " \t"):
             raise ValueError(f"line {n}: expected 'key: value', got {line!r}")
-        k = _parse_scalar(k)
+        k = _parse_scalar_at(k, n)
         if k in out:
             raise ValueError(f"line {n}: duplicate key {k!r}")
-        v = _split_comment(v)
+        v = v.strip()
         key, items = (k, None) if not v else (None, None)
-        out[k] = None if not v else _flow_list(v) if v.startswith("[") \
-            and v.endswith("]") else _parse_scalar(v)
-    return out
+        if v.startswith("["):
+            out[k], i = _flow_value(rows, i, v)
+            continue
+        out[k] = _parse_scalar_at(v, n) if v else None
+        i += 1
+    return out or None
+
+
+def _parse_scalar_at(v: str, n: int):
+    try:
+        return _parse_scalar(v)
+    except ValueError as e:
+        raise ValueError(f"line {n}: {e}") from None

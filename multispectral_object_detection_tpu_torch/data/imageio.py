@@ -11,16 +11,23 @@ cv2 or PIL. Other formats (BMP, TIFF, ...) go through cv2 where it is importable
 else PIL, and fail with an error that names both when neither is.
 ``imdecode`` does the same for bytes in memory (an upload).
 
+``jpeg_info`` reads a JPEG's size, components and EXIF orientation from its
+markers, as PIL's ``Image.open`` does, without decoding it. ``imread``
+turns a JPEG by its EXIF orientation (2-8: flips and transposes) as
+``cv2.imread`` does; ``imdecode`` never turns an image, as the JAX REST
+service's PIL decode does not.
+
 Images are returned as (H, W, 3) uint8 RGB, what ``cv2.imread(path)[...,
 ::-1]`` gives: gray is replicated to three channels and alpha is dropped.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from pathlib import Path
-from typing import Tuple
+from typing import BinaryIO, NamedTuple, Tuple
 
 import numpy as np
 
@@ -158,30 +165,154 @@ def is_jpeg(data: bytes) -> bool:
     return data[:3] == b"\xff\xd8\xff"
 
 
+EXIF_ORIENTATION = 274  # the TIFF tag, in IFD0 of a JPEG's APP1 Exif block
+# markers after which no length follows: TEM, RSTn, SOI, EOI, JPGn
+_BARE_MARKERS = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
+# start-of-frame kinds (baseline, progressive, lossless, arithmetic, ...)
+_SOF_MARKERS = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
+                0xCD, 0xCE, 0xCF, 0xDE}
+
+
+class JpegInfo(NamedTuple):
+    width: int
+    height: int
+    orientation: int       # EXIF tag 274; 1 when absent or unreadable
+    components: int        # 1 gray, 3 YCbCr/RGB, 4 CMYK/YCCK
+    adobe_transform: int   # APP14 Adobe colour transform; -1 when absent
+
+
+def _exif_orientation(block: bytes) -> int:
+    """The orientation tag of an APP1 Exif payload's IFD0, 1 when it has
+    none or the block does not parse (PIL and cv2 ignore such blocks)."""
+    try:
+        tiff = block[6:]
+        e = {b"II": "<", b"MM": ">"}[tiff[:2]]
+        ifd, = struct.unpack_from(e + "I", tiff, 4)
+        n, = struct.unpack_from(e + "H", tiff, ifd)
+        for k in range(n):
+            tag, kind = struct.unpack_from(e + "HH", tiff, ifd + 2 + 12 * k)
+            if tag == EXIF_ORIENTATION:
+                fmt = {3: "H", 4: "I"}[kind]  # SHORT or LONG
+                return struct.unpack_from(e + fmt, tiff, ifd + 10 + 12 * k)[0]
+    except (KeyError, struct.error):
+        pass
+    return 1
+
+
+def _read(f: BinaryIO, n: int) -> bytes:
+    b = f.read(n)
+    if len(b) != n:
+        raise ValueError("truncated JPEG header")
+    return b
+
+
+def read_jpeg_header(f: BinaryIO) -> JpegInfo:
+    """Walk a JPEG's markers from SOI to the first SOS, as PIL's
+    ``Image.open`` does: fill bytes and bytes between segments skipped,
+    every other segment skipped by its length. Size and components come
+    from the SOFn segment, the orientation from the first APP1 Exif block.
+    What follows SOS (the entropy-coded data) is not read, so a file cut
+    short inside it passes, as it passes PIL's ``verify``. Raises ValueError
+    where PIL's open fails: no SOI, an unknown marker, a segment cut short,
+    no SOFn before SOS, not 8-bit, or not 1, 3 or 4 components."""
+    if f.read(3) != b"\xff\xd8\xff":
+        raise ValueError("not a JPEG file")
+    frame, orientation, adobe = None, None, -1
+    c = 0xFF
+    while True:
+        if c != 0xFF:  # a byte between segments
+            c = _read(f, 1)[0]
+            continue
+        m = _read(f, 1)[0]
+        if m == 0xFF:  # fill byte
+            continue
+        if m < 0xC0:  # 0xFF00 is a stuffed zero, the rest are no markers
+            if m:
+                raise ValueError(f"no JPEG marker at 0xFF{m:02X}")
+            c = _read(f, 1)[0]
+            continue
+        if m not in _BARE_MARKERS:
+            n, = struct.unpack(">H", _read(f, 2))
+            if n < 2:
+                raise ValueError(f"JPEG segment 0xFF{m:02X} of length {n}")
+            body = _read(f, n - 2)
+            if m in _SOF_MARKERS:  # the last one before SOS counts, as in PIL
+                if len(body) < 6 or body[0] != 8 or body[5] not in (1, 3, 4):
+                    raise ValueError("JPEG frame: not 8-bit with 1, 3 or 4 "
+                                     "components")
+                frame = struct.unpack(">HH", body[1:5]) + (body[5],)
+            elif m == 0xE1 and body[:6] == b"Exif\0\0" and orientation is None:
+                orientation = _exif_orientation(body)
+            elif m == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+                adobe = body[11]
+            if m == 0xDA:
+                break
+        c = _read(f, 1)[0]
+    if frame is None:
+        raise ValueError("JPEG without a frame header before its scan")
+    h, w, comps = frame
+    return JpegInfo(w, h, orientation or 1, comps, adobe)
+
+
+def jpeg_info(path) -> JpegInfo:
+    """``read_jpeg_header`` of a file (reads the headers only)."""
+    with open(path, "rb") as f:
+        return read_jpeg_header(f)
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Turn a decoded image by its EXIF orientation as cv2.imread does
+    (2: mirror, 3: 180, 4: flip, 5: transpose, 6: 90 clockwise, 7:
+    transverse, 8: 90 anticlockwise; other values: unchanged)."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    flip = {2: (slice(None), slice(None, None, -1)),
+            3: (slice(None, None, -1), slice(None, None, -1)),
+            4: (slice(None, None, -1),),
+            6: (slice(None), slice(None, None, -1)),
+            7: (slice(None, None, -1), slice(None, None, -1)),
+            8: (slice(None, None, -1),)}.get(orientation)
+    return np.ascontiguousarray(img[flip] if flip else img)
+
+
 def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Encoded image bytes -> (H, W, 3) uint8 RGB. ``name`` labels errors.
-    Raises ImportError for a format that needs cv2 or PIL when neither is
-    installed (JPEG only where no native decoder builds either), and
-    ValueError for bytes no decoder reads."""
+    """Encoded image bytes -> (H, W, 3) uint8 RGB, not turned by an EXIF
+    orientation. ``name`` labels errors. Raises ImportError for a format
+    that needs cv2 or PIL when neither is installed (JPEG only where no
+    native decoder builds either), and ValueError for bytes no decoder
+    reads."""
+    return _decode(data, name, orient=False)
+
+
+def _decode(data: bytes, name: str, orient: bool) -> np.ndarray:
     if data[:8] == PNG_SIGNATURE:
         im = decode_png(data)
         if im.shape[2] in (1, 2):  # gray (+ alpha)
             return np.repeat(im[:, :, :1], 3, axis=2)
         return np.ascontiguousarray(im[:, :, :3])
+    orientation = 1
     if is_jpeg(data):
         from . import native
 
+        if orient:
+            try:
+                orientation = read_jpeg_header(io.BytesIO(data)).orientation
+            except ValueError:
+                pass  # the decoder below reports what it cannot read
         if native.jpeg_available():
             try:
-                return native.decode_jpeg(data)
+                return apply_orientation(native.decode_jpeg(data),
+                                         orientation)
             except ValueError as e:
                 raise ValueError(f"{name}: {e}") from None
     try:
         import cv2
     except ImportError:
         cv2 = None
-    if cv2 is not None:
-        im = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if cv2 is not None:  # cv2 turns by the EXIF tag itself
+        flags = cv2.IMREAD_COLOR if orient else \
+            cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION
+        im = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
         if im is None:
             raise ValueError(f"cv2 cannot decode {name}")
         return np.ascontiguousarray(im[:, :, ::-1])
@@ -193,16 +324,15 @@ def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 "only PNG and JPEG are read without cv2 or PIL")
         raise ImportError(f"{name}: {what}; install opencv-python or Pillow "
                           f"for other formats") from None
-    import io
-
     with Image.open(io.BytesIO(data)) as im:
-        return np.asarray(im.convert("RGB"))
+        return apply_orientation(np.asarray(im.convert("RGB")), orientation)
 
 
 def imread(path) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB (``imdecode`` of its bytes).
-    Raises FileNotFoundError for a missing file."""
+    """An image file -> (H, W, 3) uint8 RGB, a JPEG turned by its EXIF
+    orientation as ``cv2.imread`` turns it. Raises FileNotFoundError for a
+    missing file."""
     path = str(path)
     if not Path(path).is_file():
         raise FileNotFoundError(f"image not found: {path}")
-    return imdecode(Path(path).read_bytes(), path)
+    return _decode(Path(path).read_bytes(), path, orient=True)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import io
 import os
 import shutil
 import subprocess
@@ -184,11 +185,30 @@ def jpeg_size(data: bytes):
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB; ValueError for a corrupt stream."""
+    """JPEG bytes -> (H, W, 3) uint8 RGB, CMYK files by OpenCV's rule (the
+    nvJPEG route: CMYK with planes at full size, not YCCK); ValueError for
+    a corrupt stream or a CMYK file this route does not decode."""
+    from .imageio import read_jpeg_header
+
+    nv = jpeg_backend() == "jpeg_nvjpeg"
+    cmyk = False
+    if nv:
+        try:
+            head = read_jpeg_header(io.BytesIO(data))
+        except ValueError:
+            head = None  # nvJPEG reports what it cannot read
+        cmyk = head is not None and head.components == 4
+        if cmyk and head.adobe_transform == 2:
+            raise ValueError("a YCCK-coded CMYK JPEG: nvJPEG returns its "
+                             "planes without the colour transform, so this "
+                             "route does not decode it (libjpeg does)")
     h, w = jpeg_size(data)
     out = np.empty((h, w, 3), np.uint8)
     rc = _jpeg_lib().msod_jpeg_decode(_u8(np.frombuffer(data, np.uint8)),
                                       len(data), _u8(out), h, w)
+    if rc == -3 or (rc != 0 and cmyk):
+        raise ValueError(f"a CMYK JPEG that nvJPEG does not decode (code "
+                         f"{rc}; -3: subsampled planes)")
     if rc != 0:
         raise ValueError(f"JPEG decode failed (code {rc})")
     return out

@@ -13,7 +13,9 @@ row is ``[from, number, module, args]``:
 - the ``from: -4`` sentinel meaning "the second (IR) network input";
 - a savelist of layer outputs consumed by later layers.
 
-``yaml`` is imported only when ``cfg`` is a path.
+A path is read through PyYAML where it is installed, else through the
+port's own reader (``data/hyps.load_flat_yaml``, which reads the
+reference's model YAMLs to what PyYAML gives).
 """
 
 from __future__ import annotations
@@ -140,10 +142,9 @@ def parse_model_config(cfg, ch_in: int = 3, nc: Optional[int] = None,
                        anchors=None) -> ModelSpec:
     """Compile a model YAML (path or dict) into a ModelSpec."""
     if isinstance(cfg, str):
-        import yaml
+        from ..data.hyps import read_yaml
 
-        with open(cfg) as f:
-            cfg = yaml.safe_load(f)
+        cfg = read_yaml(cfg)  # PyYAML where it is installed
     cfg = dict(cfg)
     if nc is not None:
         cfg["nc"] = nc

@@ -1,8 +1,9 @@
 """Helpers of the port's entry points: device selection, seeds, image
 sizes, run directories and the newest ``last`` checkpoint, class and image
 weights, COCO class ids, the native-space box rescale, box drawing, image
-writing and detection crops; file and dataset checks, coloured log text,
-importable packages and the checkout's git status.
+writing, detection crops and the second-stage classifier filter; file and
+dataset checks, coloured log text, importable packages and the checkout's
+git status.
 
 The port's own copies of the framework-free helpers of
 multispectral_object_detection_tpu/utils/general.py and of
@@ -226,6 +227,43 @@ def save_one_box(xyxy, im: np.ndarray, file="image.jpg", gain: float = 1.02,
         write_image(Path(file).with_suffix(".jpg"),
                     crop[..., ::-1] if bgr else crop)
     return crop
+
+
+def apply_classifier(boxes, classes, im0: np.ndarray, classify_fn,
+                     size: int = 224) -> np.ndarray:
+    """The second-stage classifier filter of the reference's detect script
+    (general.py:593-626).
+
+    boxes: (N, 4) xyxy in ``im0`` (HWC uint8 RGB) native pixels; classes:
+    (N,) ints. Each box is cut out as a square of 1.3 x its longer side +
+    30 px about its centre (clipped to the image), resized to ``size`` x
+    ``size`` by the port's C++ INTER_LINEAR resize (cv2.resize's pixels)
+    and scaled to [0, 1]; a box whose cutout is empty stays zeros.
+    ``classify_fn`` takes the (N, size, size, 3) float32 batch and returns
+    (N,) class ids or (N, nc) logits (numpy or a tensor). Returns the
+    (N,) bool keep-mask: where the classifier agrees with ``classes``."""
+    from ..data.native import resize
+
+    n = len(boxes)
+    if n == 0:
+        return np.zeros((0,), dtype=bool)
+    ims = np.zeros((n, size, size, 3), np.float32)
+    for j, b in enumerate(np.asarray(boxes, np.float32)):
+        cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+        s = max(b[2] - b[0], b[3] - b[1]) * 1.3 + 30  # square + pad
+        x1, y1 = int(max(cx - s / 2, 0)), int(max(cy - s / 2, 0))
+        x2 = int(min(cx + s / 2, im0.shape[1]))
+        y2 = int(min(cy + s / 2, im0.shape[0]))
+        cut = im0[y1:y2, x1:x2]
+        if cut.size:
+            ims[j] = resize(cut, size, size).astype(np.float32) / 255.0
+    pred = classify_fn(ims)
+    if isinstance(pred, torch.Tensor):
+        pred = pred.detach().cpu().numpy()
+    pred = np.asarray(pred)
+    if pred.ndim == 2:
+        pred = pred.argmax(axis=1)
+    return pred.astype(int) == np.asarray(classes).astype(int)
 
 
 def colorstr(*inputs):
