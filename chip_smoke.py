@@ -41,7 +41,9 @@ failure raises and the script exits non-zero:
    ``--ensemble-mode cat`` and ``ds``, ``--int8`` and ``--task speed``.
    Checks finite metrics over all 64 images, hybrid mAP50 and mAP >= 0.95,
    the K1 launches of every run's forwards, and one eval batch's decoded
-   outputs through the kernels against the plain stack. Then a JPEG leg
+   outputs through the kernels against the plain stack; one evaluate pass
+   of two batches under the profiler gives the device's idle ms by program
+   span (``tools/profile_model.idle_by_span``). Then a JPEG leg
    with PIL and cv2 unimportable: ``val`` over 16 LLVIP-sized JPEG pairs
    made of the committed fixtures (tests/data/jpeg, with the labels of the
    generator and seed that made them): the scan's counters (0 corrupt),
@@ -220,6 +222,25 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def kernel_launches(since=None) -> dict:
+    """K1's launches by kernel (``cft_layernorm``, ...) and K2's
+    (``c3_bottleneck``), read from the port's counters (utils/tracing),
+    less ``since``, an earlier reading."""
+    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+    from multispectral_object_detection_tpu_torch.utils import tracing
+
+    now = {n.split(".", 1)[1]: int(tracing.counter(n))
+           for n in (*cs.COUNTERS, k2.COUNTER)}
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
+def k1_launches(since) -> int:
+    """K1's launches since ``since`` (a ``kernel_launches()`` reading)."""
+    return sum(v for k, v in kernel_launches(since).items()
+               if k != "c3_bottleneck")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,7 +395,6 @@ def phase_main_path(torch, device):
     from multispectral_object_detection_tpu_torch.hub import Detector
     from multispectral_object_detection_tpu_torch.models.fusion import (
         CrossModalFusion)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     t0 = time.perf_counter()
@@ -397,11 +417,10 @@ def phase_main_path(torch, device):
                                    dtype=torch.uint8, device=device,
                                    generator=gen) for _ in range(2))
                for _ in range(REQUESTS)]
-    cs.reset_launches()
-    k2.reset_launches()
+    l0 = kernel_launches()
     outs = [det.infer(rgb, ir) for rgb, ir in batches]
     torch.cuda.synchronize()
-    launches = {**cs.LAUNCHES, **k2.LAUNCHES}
+    launches = kernel_launches(l0)
     want = {k: REQUESTS * v for k, v in per_forward.items()}
     want["c3_bottleneck"] = 0  # off by default, as in the JAX package
     print(f"main path: kernel launches over {REQUESTS} requests {launches}")
@@ -454,7 +473,6 @@ def phase_bench(torch, device):
     from multispectral_object_detection_tpu_torch.models.layers import (
         Bottleneck)
     from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.train.tta import (
         FLIPS, SCALES, _scale_img)
 
@@ -475,11 +493,10 @@ def phase_bench(torch, device):
         print(f"bench leg {name}: built in {time.perf_counter() - t0:.1f} s; "
               f"CFT stages C={[m.d_model for m in stages]}, K2 blocks "
               f"{len(blocks)} at C={sorted({m.cv1.conv.out_channels for m in blocks})}")
-        cs.reset_launches()
-        k2.reset_launches()
+        l0 = kernel_launches()
         res = bench.measure(args, infer, rgb, ir)
         torch.cuda.synchronize()
-        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        got = kernel_launches(l0)
         fw = res["forwards"]
         want = {"cft_layernorm": 2 * layers * fw, "cft_gemm_bias": layers * fw,
                 "cft_gemm_gelu": layers * fw,
@@ -561,8 +578,6 @@ def phase_eval(torch, device):
         get_config)
     from multispectral_object_detection_tpu_torch.models.model import (
         build_model, init_weights)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.ops.boxes import (
         pairwise_iou, xywh_to_xyxy)
     from multispectral_object_detection_tpu_torch.ops.ds_fusion import (
@@ -606,13 +621,12 @@ def phase_eval(torch, device):
                 ["--data", "dict", "--weights", *ckpts[:n_ckpt],
                  "--project", str(root / "runs")] + extra)
             args.data = data
-            cs.reset_launches()
-            k2.reset_launches()
+            l0 = kernel_launches()
             t0 = time.perf_counter()
             res = test_cli.run(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = {**cs.LAUNCHES, **k2.LAUNCHES}
+            got = kernel_launches(l0)
             forwards = (3 + 20) if name == "speed" else batches * fwd_per_batch
             want = {k: v * forwards for k, v in per_forward.items()}
             print(f"eval {name}: {wall:.2f} s, {forwards} forwards, "
@@ -668,6 +682,8 @@ def phase_eval(torch, device):
               f"batch: {ds_ms:.3f} ms")
         out["nms_batch"] = {"wall_ms": nms_wall, "device_ms": nms_dev,
                             "launches": nms_launches, "ds_fusion_ms": ds_ms}
+        out["idle_by_span"] = _eval_idle_by_span(torch, device, data,
+                                                 ckpts[0])
         saturated = int((dets_k[..., 4] * dets_k[..., 5] >= 1.0).sum())
         overlaps = 0
         for lab in ds.labels:
@@ -685,6 +701,28 @@ def phase_eval(torch, device):
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _eval_idle_by_span(torch, device, data: dict, ckpt: str) -> dict:
+    """One evaluate pass over the test CLI's first two batches under the
+    profiler (tools/profile_model.profile): the device's idle ms and the
+    host ms by program span (``idle_by_span``)."""
+    from multispectral_object_detection_tpu_torch.cli import test_cli
+    from multispectral_object_detection_tpu_torch.tools import (
+        profile_model as pm)
+    from multispectral_object_detection_tpu_torch.train.evaluator import (
+        evaluate)
+
+    args = test_cli.parse_args(["--data", "dict", "--weights", ckpt])
+    _, fwd = test_cli.build_forward(args, data, device)
+    batches = list(test_cli.make_loader(args, data, IMG, 1)[1])[:2]
+    res = pm.profile(lambda: evaluate(fwd, batches, 1, device=device),
+                     pm.SERVING_KINDS, runs=1, device=device.type)
+    print(f"eval: one traced evaluate pass of {len(batches)} batches, "
+          f"{res['host_ms']:.3f} ms, device idle {res['idle']:.1%}:\n"
+          + pm.spans_table(res["spans"]))
+    return {"host_ms": res["host_ms"], "idle": res["idle"],
+            "spans": res["spans"]}
 
 
 def _eval_batch_kernels_vs_plain(torch, device, data: dict, ckpt: str,
@@ -749,8 +787,6 @@ def _eval_jpeg(torch, device, root: Path, ckpt: str, per_forward: dict):
     from multispectral_object_detection_tpu_torch.data import native
     from multispectral_object_detection_tpu_torch.data.synthetic import (
         make_paired_dataset)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     check(native.jpeg_available(), "no JPEG decoder builds on this machine "
           "(jpeglib.h or CUDA's nvjpeg.h)")
@@ -776,13 +812,12 @@ def _eval_jpeg(torch, device, root: Path, ckpt: str, per_forward: dict):
         args = test_cli.parse_args(["--data", "dict", "--weights", ckpt,
                                     "--project", str(root / "runs")])
         args.data = data
-        cs.reset_launches()
-        k2.reset_launches()
+        l0 = kernel_launches()
         t0 = time.perf_counter()
         res = test_cli.run(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        got = kernel_launches(l0)
         forwards = -(-EVAL_JPEG_PAIRS // EVAL_BATCH)
         want = {k: v * forwards for k, v in per_forward.items()}
         check(got == want, f"eval jpeg: launch counts {got} != {want}")
@@ -908,8 +943,6 @@ def phase_serving(torch, device):
         get_config)
     from multispectral_object_detection_tpu_torch.models.model import (
         build_model, init_weights)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.ops.preprocess import (
         letterbox_batch)
     from multispectral_object_detection_tpu_torch.serve import rest_api
@@ -920,13 +953,14 @@ def phase_serving(torch, device):
                    "cft_gemm_gelu": 24, "cft_gemm_residual": 48,
                    "cft_attention": 24, "c3_bottleneck": 0}
 
+    mark = {}
+
     def reset():
-        cs.reset_launches()
-        k2.reset_launches()
+        mark["launches"] = kernel_launches()
 
     def counted(forwards, what):
         torch.cuda.synchronize()
-        got = {**cs.LAUNCHES, **k2.LAUNCHES}
+        got = kernel_launches(mark["launches"])
         want = {k: v * forwards for k, v in per_forward.items()}
         check(got == want, f"{what}: launch counts {got} != {want}")
         return sum(got.values())
@@ -1678,7 +1712,6 @@ def _train_cli_runs(torch, device, card: str) -> tuple:
         CrossModalFusion)
     from multispectral_object_detection_tpu_torch.models.model import (
         build_model, load_reference_state_dict)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
     from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.utils.checkpoint import (
         load_inference_params)
@@ -1702,15 +1735,14 @@ def _train_cli_runs(torch, device, card: str) -> tuple:
             args.data = data
             return train_cli.run(args)
 
-        cs.reset_launches()
-        k2.reset_launches()
+        l0 = kernel_launches()
         t0 = time.perf_counter()
         r = train(["--epochs", "2", "--name", "exp"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         run = Path(r["save_dir"])
         lines = (run / "results.txt").read_text().splitlines()
-        k1 = sum(cs.LAUNCHES.values())
+        k1 = k1_launches(l0)
         print(f"  8.3 train CLI, 2 epochs of l@{TRAIN_IMG} bs{TRAIN_BATCH} "
               f"over {TRAIN_CLI_IMAGES} pairs in {secs:.1f} s [{card}]")
         for ln in lines:
@@ -1719,7 +1751,8 @@ def _train_cli_runs(torch, device, card: str) -> tuple:
               "results.txt lacks an epoch's eval")
         check(r["eval_forwards"] > 0 and k1 == 168 * r["eval_forwards"],
               f"K1 launches {k1} != 168 x {r['eval_forwards']} eval forwards")
-        check(sum(k2.LAUNCHES.values()) == 0, "K2 launched in training")
+        check(kernel_launches(l0)["c3_bottleneck"] == 0,
+              "K2 launched in training")
         print(f"  8.3 per-epoch eval: {r['eval_forwards']} EMA forwards, "
               f"{k1} K1 launches (168 per forward)")
         out.update(seconds=secs, eval_forwards=r["eval_forwards"],
@@ -2005,7 +2038,6 @@ def _train_cli_9b(torch, card, data, project) -> dict:
     l@640 bs8, and --evolve 2 on the n model; K1's launches per EMA eval
     forward."""
     from multispectral_object_detection_tpu_torch.cli import train_cli
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     def train(argv):
         args = train_cli.parse_args(
@@ -2013,11 +2045,11 @@ def _train_cli_9b(torch, card, data, project) -> dict:
              "--img-size", str(TRAIN_IMG), "--batch-size", str(TRAIN_BATCH),
              "--project", str(project)] + argv)
         args.data = data
-        cs.reset_launches()
+        l0 = kernel_launches()
         t0 = time.perf_counter()
         r = (train_cli.evolve if args.evolve else train_cli.run)(args)
         torch.cuda.synchronize()
-        return r, time.perf_counter() - t0, sum(cs.LAUNCHES.values())
+        return r, time.perf_counter() - t0, k1_launches(l0)
 
     cli = {}
     for name, argv in (("device_aug", ["--epochs", "2", "--device-aug",
@@ -2346,11 +2378,11 @@ def _zoo_10a(torch, device) -> dict:
     x = torch.rand((ZOO_BATCH, 3, ZOO_P6_IMG, ZOO_P6_IMG), generator=gen,
                    device=device).contiguous(memory_format=torch.channels_last)
     hooks = [m.register_forward_hook(grab) for m in blocks]
-    k2.reset_launches()
+    l0 = kernel_launches()
     with torch.inference_mode():
         raw_k = model(x)
     torch.cuda.synchronize()
-    launches = k2.LAUNCHES["c3_bottleneck"]
+    launches = kernel_launches(l0)["c3_bottleneck"]
     for h in hooks:
         h.remove()
     check(launches == 2 * len(blocks) and len(blocks) == 24,
@@ -2428,7 +2460,6 @@ def _gradcam_10b(torch, device, tmp: Path) -> dict:
     from multispectral_object_detection_tpu_torch.hub import create
     from multispectral_object_detection_tpu_torch.models.model import (
         plain_kernels)
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.utils import gradcam
 
     name = "yolov5l_fusion_transformerx3"
@@ -2439,10 +2470,10 @@ def _gradcam_10b(torch, device, tmp: Path) -> dict:
     x, x2 = (torch.rand((2, 3, IMG, IMG), generator=gen, device=device)
              for _ in range(2))
     for layer in CAM_LAYERS:
-        cs.reset_launches()
+        l0 = kernel_launches()
         cam_k = gradcam.compute_cam(model, x, x2, layer=layer, mode="sum")
         torch.cuda.synchronize()
-        k1 = sum(cs.LAUNCHES.values())
+        k1 = k1_launches(l0)
         acts = []
         for plain in (False, True):
             with contextlib.ExitStack() as stack:
@@ -2526,7 +2557,6 @@ def _export_10c(torch, device, ckpt: Path, tmp: Path) -> dict:
     torch.export.load runs each on the card against Detector.infer (K1)."""
     from multispectral_object_detection_tpu_torch.cli import export_cli
     from multispectral_object_detection_tpu_torch.hub import Detector
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.ops.boxes import (
         pairwise_iou)
     from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
@@ -2554,10 +2584,10 @@ def _export_10c(torch, device, ckpt: Path, tmp: Path) -> dict:
         manifest = json.loads((Path(d) / "manifest.json").read_text())
         program = torch.export.load(str(Path(d) / "model.pt2")).module()
         t_load = time.perf_counter() - t0 - t_export
-        cs.reset_launches()
+        l0 = kernel_launches()
         got = program(rgb, ir)
         torch.cuda.synchronize()
-        check(sum(cs.LAUNCHES.values()) == 0,
+        check(k1_launches(l0) == 0,
               "the exported program launched a ctypes kernel")
         ms = cuda_ms(lambda: program(rgb, ir), iters=5, warmup=1)
         progs[nms] = got
@@ -2836,8 +2866,6 @@ def _resume_11c(torch, run_of_8: dict) -> dict:
 
     from multispectral_object_detection_tpu_torch.data.hyps import (
         dump_flat_yaml, load_flat_yaml)
-    from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
     from multispectral_object_detection_tpu_torch.tools import resume_runs
 
     run, tmp = run_of_8["run"], run_of_8["tmp"]
@@ -2853,8 +2881,7 @@ def _resume_11c(torch, run_of_8: dict) -> dict:
     level = root.level
     root.setLevel(logging.INFO)  # the train CLI's "resumed from" line
     root.addHandler(handler)
-    cs.reset_launches()
-    k2.reset_launches()
+    l0 = kernel_launches()
     t0 = time.perf_counter()
     try:
         res = resume_runs.resume_all(str(run.parent))
@@ -2869,7 +2896,7 @@ def _resume_11c(torch, run_of_8: dict) -> dict:
     said = f"resumed from {run / 'last'} at epoch 2"
     meta = json.loads((run / "last" / "meta.json").read_text())
     lines = (run / "results.txt").read_text().splitlines()
-    k1 = sum(cs.LAUNCHES.values())
+    k1 = k1_launches(l0)
     print(f"resume_runs: {run.name} in {secs:.1f} s; {lines[-1]}")
     print(f"resume_runs: eval {r['eval_forwards']} EMA forwards, {k1} K1 "
           f"launches (168 per forward)")
@@ -2878,7 +2905,7 @@ def _resume_11c(torch, run_of_8: dict) -> dict:
           and lines[2].split()[1] == "2/2" and "mAP50" in lines[2],
           f"resumed run: meta {meta}, results {lines}")
     check(r["eval_forwards"] > 0 and k1 == 168 * r["eval_forwards"]
-          and sum(k2.LAUNCHES.values()) == 0,
+          and kernel_launches(l0)["c3_bottleneck"] == 0,
           f"resumed eval: K1 {k1} for {r['eval_forwards']} forwards")
     return {"seconds_run": secs, "eval_forwards": r["eval_forwards"],
             "k1_launches": k1, "results": lines}
@@ -3019,7 +3046,6 @@ def _model_yaml_11f(torch, tmp: Path) -> dict:
     from multispectral_object_detection_tpu_torch.cli import train_cli
     from multispectral_object_detection_tpu_torch.data.synthetic import (
         make_paired_dataset)
-    from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
 
     cfg = Path(__file__).resolve().parent / "tests" / "data" / \
         "yolov5l_fusion_transformerx3.yaml"
@@ -3033,12 +3059,12 @@ def _model_yaml_11f(torch, tmp: Path) -> dict:
              "--nosave", "--project", str(tmp / "yaml_runs")])
         args.data = {"train_rgb": rgb, "train_ir": ir, "val_rgb": rgb,
                      "val_ir": ir, "nc": 1, "names": ["a"]}
-        cs.reset_launches()
+        l0 = kernel_launches()
         t0 = time.perf_counter()
         r = train_cli.run(args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    k1 = sum(cs.LAUNCHES.values())
+    k1 = k1_launches(l0)
     line = (Path(r["save_dir"]) / "results.txt").read_text().strip()
     print(f"  11f train CLI --cfg {cfg.name} without PyYAML, 1 step of "
           f"l@{TRAIN_IMG} bs{TRAIN_BATCH} and its eval in {secs:.1f} s: "

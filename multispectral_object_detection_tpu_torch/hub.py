@@ -31,6 +31,7 @@ from .ops.nms import Detections, batched_nms
 from .train.eval_forward import ENSEMBLE_MODES, combine_members
 from .utils.checkpoint import load_inference_params
 from .utils.general import draw_box, select_device, write_image
+from .utils.tracing import span
 
 
 def create(cfg: Union[str, dict] = "yolov5l_fusion_transformerx3",
@@ -198,8 +199,9 @@ class Detector:
             raise ValueError(f"expected uint8 (B, {self.img_size}, "
                              f"{self.img_size}, 3), got {t.dtype} "
                              f"{tuple(t.shape)}")
-        t = t.to(self.device, non_blocking=True)
-        return t.permute(0, 3, 1, 2).float() / 255.0
+        with span("detector.upload"):
+            t = t.to(self.device, non_blocking=True)
+            return t.permute(0, 3, 1, 2).float() / 255.0
 
     @torch.inference_mode()
     def raw(self, rgb_u8, ir_u8):
@@ -209,10 +211,11 @@ class Detector:
     @torch.inference_mode()
     def infer(self, rgb_u8, ir_u8) -> Detections:
         """uint8 RGB and IR batches (B, S, S, 3) -> fixed-size Detections
-        (B, 300, ...) in canvas pixels."""
-        dets = self.model.decode(self.raw(rgb_u8, ir_u8))
-        return batched_nms(dets, conf_thres=self.conf, iou_thres=self.iou,
-                           multi_label=False, max_det=300, top_k=1024)
+        (B, 300, ...) in canvas pixels; one ``detector.infer`` span."""
+        with span("detector.infer"):
+            dets = self.model.decode(self.raw(rgb_u8, ir_u8))
+            return batched_nms(dets, conf_thres=self.conf, iou_thres=self.iou,
+                               multi_label=False, max_det=300, top_k=1024)
 
     @staticmethod
     def _to_img(x) -> np.ndarray:

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.tracing import span
 from .quantize import conv_weight
 
 
@@ -86,7 +87,9 @@ def decode_predictions(feats, anchors_px: np.ndarray, strides: Sequence[int],
         xy = (2*sig(txy) - 0.5 + grid) * stride
         wh = (2*sig(twh))^2 * anchor_px
 
-    obj/cls stay as probabilities."""
+    obj/cls stay as probabilities. Each scale's anchors go to the device
+    by a blocking copy, which waits for the stream: a ``sync.decode_anchors``
+    span (utils/tracing)."""
     zs = []
     for i, f in enumerate(feats):
         b, ny, nx, na, no = f.shape
@@ -96,9 +99,10 @@ def decode_predictions(feats, anchors_px: np.ndarray, strides: Sequence[int],
             torch.arange(nx, dtype=torch.float32, device=f.device),
             indexing="ij")
         grid = torch.stack([gx, gy], dim=-1).view(1, ny, nx, 1, 2)
-        anc = torch.as_tensor(np.ascontiguousarray(anchors_px[i]),
-                              dtype=torch.float32,
-                              device=f.device).view(1, 1, 1, na, 2)
+        with span("sync.decode_anchors"):
+            anc = torch.as_tensor(np.ascontiguousarray(anchors_px[i]),
+                                  dtype=torch.float32,
+                                  device=f.device).view(1, 1, 1, na, 2)
         xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * float(strides[i])
         wh = (y[..., 2:4] * 2.0) ** 2 * anc
         z = torch.cat([xy, wh, y[..., 4:]], dim=-1)

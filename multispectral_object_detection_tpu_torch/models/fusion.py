@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import adaptive_avg_pool_2d, bilinear_resize_2d
 from ..ops.cft_stack import cft_stack_train, fused_cft_stack
+from ..utils.tracing import span
 
 _STACKED = ("wqkv", "bqkv", "wp", "bp", "w1", "b1", "w2", "b2", "ln1", "ln2")
 _MASK64 = (1 << 64) - 1
@@ -177,8 +178,9 @@ class CrossModalFusion(nn.Module):
         if self.training:
             x = self._train_stack(x, seed)
         else:
-            x = self.stack_fn(x, *self.stacked_weights(dt),
-                              num_heads=self.num_heads)
+            with span("fusion.cft"):
+                x = self.stack_fn(x, *self.stacked_weights(dt),
+                                  num_heads=self.num_heads)
         x = F.layer_norm(x.float(), (c,), self.ln_f.weight.float(),
                          self.ln_f.bias.float(), self.ln_f.eps).to(dt)
         n = gv * gh

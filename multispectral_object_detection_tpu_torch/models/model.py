@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.tracing import span
 from . import layers as L
 from .detect import Detect, anchor_arrays, decode_predictions
 from .fusion import CrossModalFusion, mix_seed
@@ -142,37 +143,40 @@ class DetectionModel(nn.Module):
     def forward(self, x, x2=None, dropout_seed: Optional[int] = None):
         """``dropout_seed`` keys the CFT dropout masks in training mode
         (each stage mixes in its node index); None draws one from torch's
-        global generator on the host."""
+        global generator on the host. One ``model.forward`` span: the
+        host's time to enqueue the graph."""
         if self.spec.two_stream and x2 is None:
             raise ValueError("two-stream model needs both RGB and IR inputs")
-        saved = {}
-        cur = x.to(self.dtype)
-        x2 = None if x2 is None else x2.to(self.dtype)
-        remat = self.remat_blocks and self.training and \
-            torch.is_grad_enabled()
-        if self.training and dropout_seed is None:
-            dropout_seed = int(torch.randint(2 ** 62, ()))
-        for node, mod in zip(self.spec.nodes, self.model):
-            if node.frm == (-4,) and not node.multi:
-                inp = x2
-            elif node.frm == (-1,) and not node.multi:
-                inp = cur
-            elif node.multi:
-                inp = [cur if j == -1 else saved[j] for j in node.frm]
-            else:
-                inp = saved[node.frm[0]]
-            fn = mod
-            if isinstance(mod, CrossModalFusion) and self.training:
-                def fn(y, _m=mod, _s=mix_seed(dropout_seed, node.index)):
-                    return _m(y, _s)
-            cur = checkpoint_once(fn, inp) if remat else fn(inp)
-            if node.index in self.spec.save:
-                saved[node.index] = cur
-        return cur
+        with span("model.forward"):
+            saved = {}
+            cur = x.to(self.dtype)
+            x2 = None if x2 is None else x2.to(self.dtype)
+            remat = self.remat_blocks and self.training and \
+                torch.is_grad_enabled()
+            if self.training and dropout_seed is None:
+                dropout_seed = int(torch.randint(2 ** 62, ()))
+            for node, mod in zip(self.spec.nodes, self.model):
+                if node.frm == (-4,) and not node.multi:
+                    inp = x2
+                elif node.frm == (-1,) and not node.multi:
+                    inp = cur
+                elif node.multi:
+                    inp = [cur if j == -1 else saved[j] for j in node.frm]
+                else:
+                    inp = saved[node.frm[0]]
+                fn = mod
+                if isinstance(mod, CrossModalFusion) and self.training:
+                    def fn(y, _m=mod, _s=mix_seed(dropout_seed, node.index)):
+                        return _m(y, _s)
+                cur = checkpoint_once(fn, inp) if remat else fn(inp)
+                if node.index in self.spec.save:
+                    saved[node.index] = cur
+            return cur
 
     def decode(self, feats) -> torch.Tensor:
-        return decode_predictions(feats, anchor_arrays(self.spec.anchors),
-                                  self.spec.strides)
+        with span("model.decode"):
+            return decode_predictions(feats, anchor_arrays(self.spec.anchors),
+                                      self.spec.strides)
 
     def fuse(self) -> "DetectionModel":
         """Inference form: fold every BatchNorm into its conv and pack the

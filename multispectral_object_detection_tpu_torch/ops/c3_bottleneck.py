@@ -13,7 +13,8 @@ tensors, after ``check_c3`` has checked its arguments; on CPU
 tensors it runs ``c3_bottleneck_plain``, the counterpart of
 ``bottleneck_ref`` with its rounding points: z = SiLU(x . W1 in fp32 + b1)
 rounded to the dtype; y = conv3x3(z) in fp32 + b2; out = (x in fp32 +
-SiLU(y)) rounded. ``LAUNCHES`` counts the kernel's launches.
+SiLU(y)) rounded. Each launch adds one to the counter ``COUNTER``
+(utils/tracing).
 """
 
 from __future__ import annotations
@@ -22,12 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import DTYPE_CODE, check_args, launch, on_cpu, ptr, require
+from ..utils.tracing import count
 
-LAUNCHES = {"c3_bottleneck": 0}
-
-
-def reset_launches() -> None:
-    LAUNCHES["c3_bottleneck"] = 0
+COUNTER = "k2.c3_bottleneck"
 
 
 def c3_bottleneck_plain(x, w1, b1, w2, b2):
@@ -74,7 +72,7 @@ def c3_conv(a, w, b, res, out, taps: int) -> None:
     launch("c3_bottleneck", "c3_conv", a.device, ptr(a), ptr(w), ptr(b),
            int(b.dtype == torch.bfloat16), ptr(res), ptr(out), B, H, W, C,
            out.shape[-1], taps, DTYPE_CODE[a.dtype])
-    LAUNCHES["c3_bottleneck"] += 1
+    count(COUNTER)
 
 
 def c3_bottleneck(x, w1, b1, w2, b2):

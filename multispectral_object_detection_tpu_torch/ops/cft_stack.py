@@ -12,8 +12,8 @@ layer is seven launches of three hand-written CUDA kernels
 Every kernel has a plain PyTorch twin beside it (``*_plain``) that repeats
 its arithmetic and rounding points. A wrapper takes the twin only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises.
-``LAUNCHES`` counts kernel launches by name, so a run can show that it went
-through the kernels.
+Each launch adds one to the counter ``k1.<kernel>`` (``COUNTERS``,
+utils/tracing), so a run can show that it went through the kernels.
 
 Numerics follow ``_kernel`` of pallas_fusion.py: LayerNorm statistics in
 fp32 (eps 1e-5), matmuls accumulated in fp32 with biases widened from the
@@ -36,15 +36,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import DTYPE_CODE, check_args, launch, on_cpu, ptr, require
+from ..utils.tracing import count
 
-LAUNCHES = {"cft_layernorm": 0, "cft_gemm_bias": 0, "cft_gemm_gelu": 0,
-            "cft_gemm_residual": 0, "cft_attention": 0}
+COUNTERS = ("k1.cft_layernorm", "k1.cft_gemm_bias", "k1.cft_gemm_gelu",
+            "k1.cft_gemm_residual", "k1.cft_attention")
 EPILOGUES = ("bias", "gelu", "residual")
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _refuse_grad(name: str, *tensors) -> None:
@@ -59,7 +55,7 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
     launch(lib_name, fn, device, *args)
-    LAUNCHES[counter] += 1
+    count(counter)
 
 
 # --------------------------------------------------------------- LayerNorm
@@ -97,7 +93,7 @@ def layer_norm(x, scale, bias, dtype, eps: float = 1e-5):
     M, C = x.shape
     out = torch.empty((M, C), dtype=dtype, device=x.device)
     check_args("layer_norm", x=x, scale=scale, bias=bias, out=out)
-    _launch("layernorm", "cft_layernorm", "cft_layernorm", x.device,
+    _launch("layernorm", "cft_layernorm", "k1.cft_layernorm", x.device,
             ptr(x), ptr(scale), ptr(bias), ptr(out), M, C, eps,
             DTYPE_CODE[dtype])
     return out
@@ -159,7 +155,7 @@ def linear(a, w, bias, epilogue: str, out=None):
     if out is None:
         out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     check_args("linear", a=a, w=w, bias=bias, out=out)
-    _launch("gemm", "cft_gemm", f"cft_gemm_{epilogue}", a.device,
+    _launch("gemm", "cft_gemm", f"k1.cft_gemm_{epilogue}", a.device,
             ptr(a), ptr(w), ptr(bias), ptr(out), M, N, K,
             EPILOGUES.index(epilogue), DTYPE_CODE[a.dtype])
     return out
@@ -211,7 +207,7 @@ def attention(qkv, batch: int, num_heads: int):
     n = M // batch
     out = torch.empty((M, C), dtype=qkv.dtype, device=qkv.device)
     check_args("attention", qkv=qkv, out=out)
-    _launch("attention", "cft_attention", "cft_attention", qkv.device,
+    _launch("attention", "cft_attention", "k1.cft_attention", qkv.device,
             ptr(qkv), ptr(out), batch, n, C, num_heads,
             DTYPE_CODE[qkv.dtype])
     return out

@@ -17,6 +17,12 @@ Counterpart of multispectral_object_detection_tpu/ops/nms.py:
   class-offset space), for 1 < candidates < 3000 per image; ``redundant``
   then drops kept boxes with no supporter but themselves;
 - fixed ``max_det`` outputs with a validity mask.
+
+Spans (utils/tracing): ``nms`` around the whole call, ``nms.select``
+(gate, sort, gather), ``nms.suppress`` (the greedy loop) and, in it,
+``sync.nms_exit`` for each early-exit check's wait on the device.
+Counters: ``nms.candidates`` (past the gate; the first exit check reads
+them, so counting adds no device work) and ``nms.iterations``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.tracing import count, span
 from .boxes import pairwise_iou, xywh_to_xyxy
 
 _MAX_WH = 4096.0  # class-offset stride
@@ -52,7 +59,9 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
               max_det: int, fixed_trip: bool = False):
     """Greedy NMS over (B, K, 4)/(B, K) -> kept indices (B, max_det),
-    validity (B, max_det) and the number of iterations run.
+    validity (B, max_det), the number of iterations run and the number
+    of candidates (scores above ``_NEG``: an int, or with ``fixed_trip``
+    a device tensor; 0 when ``max_det`` is 0).
 
     An iteration after an image's last candidate changes nothing for it,
     so the loop may check for its early exit only every few iterations
@@ -75,15 +84,21 @@ def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
             work = work.scatter(1, i[:, None], _NEG)
             picks.append(torch.where(keep, i, 0))
             kept.append(keep)
-        return torch.stack(picks, 1), torch.stack(kept, 1), max_det
+        return (torch.stack(picks, 1), torch.stack(kept, 1), max_det,
+                (scores > _NEG / 2).sum())
     idxs = torch.zeros((B, max_det), dtype=torch.long, device=scores.device)
     vals = torch.zeros((B, max_det), dtype=torch.bool, device=scores.device)
     n = torch.zeros((B,), dtype=torch.long, device=scores.device)
-    it = 0
+    it = candidates = 0
     while it < max_det:
-        if it % _EXIT_CHECK_EVERY == 0 and not bool(
-                (work.amax(dim=1) > _NEG / 2).any()):
-            break
+        if it % _EXIT_CHECK_EVERY == 0:
+            left = (work > _NEG / 2).sum()  # the candidates not yet taken
+            with span("sync.nms_exit"):
+                left = int(left)
+            if it == 0:
+                candidates = left  # none taken yet: all past the gate
+            if not left:
+                break
         it += 1
         v, i = work.max(dim=1)  # first max wins ties
         keep = v > _NEG / 2
@@ -93,7 +108,7 @@ def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
         idxs[rows, n] = torch.where(keep, i, 0)
         vals[rows, n] = keep
         n += keep.long()
-    return idxs, vals, it
+    return idxs, vals, it, candidates
 
 
 def _with_labels(pred: torch.Tensor, labels: torch.Tensor,
@@ -134,27 +149,12 @@ def _merge(bxs: torch.Tensor, shifted: torch.Tensor, scores: torch.Tensor,
     return torch.stack(out), torch.stack(keep)
 
 
-def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
-                iou_thres: float = 0.45, nc: Optional[int] = None,
-                multi_label: bool = False, agnostic: bool = False,
-                max_det: int = 300, top_k: int = 4096,
-                class_mask=None, labels=None, labels_mask=None,
-                merge: bool = False, redundant: bool = True,
-                stats: Optional[dict] = None,
-                fixed_trip: bool = False) -> Detections:
-    """Batched NMS on decoded predictions (B, N, 5+nc) [xywh, obj, cls...].
-
-    class_mask: optional (nc,) bool, keep only these classes.
-    labels/labels_mask: optional (B, M, 5)/(B, M) prior labels in canvas
-    pixels, injected as unit-confidence candidates.
-    merge: weighted box merging; ``redundant`` drops merged boxes without a
-    supporting neighbour.
-    stats: optional dict to which the candidates past the confidence gate
-    (summed over the batch, a device tensor: no host sync) and the
-    suppression iterations run are added, under "candidates" and
-    "iterations".
-    fixed_trip: run all ``max_det`` suppression iterations without the
-    early exit's host reads (the exported graph's form; same results)."""
+def _select(pred: torch.Tensor, conf_thres: float, nc: Optional[int],
+            multi_label: bool, agnostic: bool, top_k: int, class_mask,
+            labels, labels_mask):
+    """The candidates past the confidence gate, top-k by score: boxes
+    (B, k, 4) xyxy, the same in class-offset space, scores (B, k; _NEG
+    where none) and classes (B, k)."""
     pred = pred.float()
     if nc is None:
         nc = pred.shape[-1] - 5
@@ -198,22 +198,44 @@ def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
     cls = _gather(cls_of, sel)
     bxs = _gather(boxes_xyxy, box_of[sel])
     scores = torch.where(scores > 0.0, scores, _NEG)
-
     shifted = bxs if agnostic else bxs + (cls.float() * _MAX_WH)[..., None]
-    idxs, vals, iters = _suppress(shifted, scores, iou_thres, max_det,
-                                  fixed_trip)
-    if stats is not None:
-        stats["candidates"] = stats.get("candidates", 0) + (scores > 0).sum()
-        stats["iterations"] = stats.get("iterations", 0) + iters
-    if merge:
-        out_boxes, vals = _merge(bxs, shifted, scores, idxs, vals, iou_thres,
-                                 redundant)
-    else:
-        out_boxes = _gather(bxs, idxs)
+    return bxs, shifted, scores, cls
 
-    return Detections(
-        boxes=torch.where(vals[..., None], out_boxes, 0.0),
-        scores=torch.where(vals, _gather(scores, idxs), 0.0),
-        classes=torch.where(vals, _gather(cls, idxs), 0).int(),
-        valid=vals,
-    )
+
+def batched_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
+                iou_thres: float = 0.45, nc: Optional[int] = None,
+                multi_label: bool = False, agnostic: bool = False,
+                max_det: int = 300, top_k: int = 4096,
+                class_mask=None, labels=None, labels_mask=None,
+                merge: bool = False, redundant: bool = True,
+                fixed_trip: bool = False) -> Detections:
+    """Batched NMS on decoded predictions (B, N, 5+nc) [xywh, obj, cls...].
+
+    class_mask: optional (nc,) bool, keep only these classes.
+    labels/labels_mask: optional (B, M, 5)/(B, M) prior labels in canvas
+    pixels, injected as unit-confidence candidates.
+    merge: weighted box merging; ``redundant`` drops merged boxes without a
+    supporting neighbour.
+    fixed_trip: run all ``max_det`` suppression iterations without the
+    early exit's host reads (the exported graph's form; same results)."""
+    with span("nms"):
+        with span("nms.select"):
+            bxs, shifted, scores, cls = _select(
+                pred, conf_thres, nc, multi_label, agnostic, top_k,
+                class_mask, labels, labels_mask)
+        with span("nms.suppress"):
+            idxs, vals, iters, candidates = _suppress(
+                shifted, scores, iou_thres, max_det, fixed_trip)
+        count("nms.candidates", candidates)
+        count("nms.iterations", iters)
+        if merge:
+            out_boxes, vals = _merge(bxs, shifted, scores, idxs, vals,
+                                     iou_thres, redundant)
+        else:
+            out_boxes = _gather(bxs, idxs)
+        return Detections(
+            boxes=torch.where(vals[..., None], out_boxes, 0.0),
+            scores=torch.where(vals, _gather(scores, idxs), 0.0),
+            classes=torch.where(vals, _gather(cls, idxs), 0).int(),
+            valid=vals,
+        )

@@ -15,9 +15,10 @@ warm-up step, ``--iters`` iterations run under the profiler (CPU and CUDA
 activities). Prints the device ms per
 iteration, the host ms per iteration (the profiler's own cost included)
 and the device idle share, the device ms and launches by kind of
-operation, and the ``--top`` kernels by device time. It raises if the
-profiler records no CUDA kernel. With ``--device cpu`` the "device" is
-the host: the self time of the ``aten::`` operators.
+operation, the device's idle ms and the host ms by program span
+(``idle_by_span``), and the ``--top`` kernels by device time. It raises
+if the profiler records no CUDA kernel. With ``--device cpu`` the
+"device" is the host: the self time of the ``aten::`` operators.
 
 ``by_kind`` groups kernels by the first row of a table of name patterns
 that matches: ``SERVING_KINDS`` for a forward, ``TRAIN_KINDS`` for a
@@ -57,10 +58,12 @@ TRAIN_KINDS = {  # first match wins
 def kernel_events(prof, device: str = "cuda") -> list:
     """[(name, ms, launches)] of what ``prof`` (a finished
     ``torch.profiler.profile``) recorded on the device: the CUDA kernels,
-    or with ``device="cpu"`` the self time of the ``aten::`` operators."""
+    or with ``device="cpu"`` the self time of the ``aten::`` operators.
+    The program's spans (user annotations, on the host and as
+    ``gpu_user_annotation`` ranges on the device) are not kernels."""
     out = []
     for e in prof.key_averages():
-        if e.key.startswith("ProfilerStep"):  # the schedule's step spans
+        if e.key.startswith("ProfilerStep") or e.is_user_annotation:
             continue
         if device == "cpu":
             if e.device_type.name == "CPU" and e.key.startswith("aten::") \
@@ -91,6 +94,46 @@ def by_kind(kernels, kinds: dict, runs: int = 1) -> dict:
     return out
 
 
+def idle_by_span(events, runs: int = 1, device: str = "cuda") -> dict:
+    """{span: {"idle_ms", "host_ms"}} per run from the events of a finished
+    ``torch.profiler`` trace with the host's activity: each gap between
+    the device's busy intervals (the union of its kernels and copies; on
+    the CPU, of the ``aten::`` operators) is charged to the innermost
+    program span (utils/tracing: a user annotation on the host) running at
+    the gap's start, or to "(no span)"; ``host_ms`` is each span's summed
+    length."""
+    busy, spans = [], []
+    for e in events:
+        a, b = e.time_range.start, e.time_range.end
+        if e.name.startswith("ProfilerStep"):
+            continue
+        if e.is_user_annotation:
+            if e.device_type.name == "CPU":
+                spans.append((e.name, a, b))
+        elif device == "cpu" and e.device_type.name == "CPU":
+            if e.name.startswith("aten::"):
+                busy.append((a, b))
+        elif device != "cpu" and e.device_type.name == "CUDA":
+            busy.append((a, b))
+    union = []
+    for a, b in sorted(busy):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    out = {}
+    for name, a, b in spans:
+        out.setdefault(name, {"idle_ms": 0.0, "host_ms": 0.0})
+        out[name]["host_ms"] += (b - a) / 1e3 / runs
+    for (_, end), (start, _) in zip(union, union[1:]):
+        under = [sp for sp in spans if sp[1] <= end < sp[2]]
+        name = min(under, key=lambda sp: sp[2] - sp[1])[0] if under \
+            else "(no span)"
+        out.setdefault(name, {"idle_ms": 0.0, "host_ms": 0.0})
+        out[name]["idle_ms"] += (start - end) / 1e3 / runs
+    return out
+
+
 def profile(fn, kinds: dict, runs: int = 2, warmup: int = 1,
             device: str = "cuda") -> dict:
     """``fn()`` ``warmup`` times, then under ``torch.profiler`` once more as
@@ -98,8 +141,8 @@ def profile(fn, kinds: dict, runs: int = 2, warmup: int = 1,
     dropped: kernels launched just after tracing is switched on can go
     unrecorded) and ``runs`` times recorded: host and device ms per run,
     the device's idle share (1 - device / host), launches per run, the
-    kernels and their kinds. Raises RuntimeError if nothing ran on the
-    device."""
+    kernels and their kinds, and ``idle_by_span``. Raises RuntimeError if
+    nothing ran on the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from torch.profiler import schedule
@@ -134,7 +177,18 @@ def profile(fn, kinds: dict, runs: int = 2, warmup: int = 1,
     return {"host_ms": host, "device_ms": dev, "idle": 1 - dev / host,
             "launches": sum(n for _, _, n in kernels) // runs,
             "by_kind": by_kind(kernels, kinds, runs),
-            "kernels": sorted(kernels, key=lambda k: -k[1]), "runs": runs}
+            "kernels": sorted(kernels, key=lambda k: -k[1]), "runs": runs,
+            "spans": idle_by_span(prof.events(), runs,
+                                  "cpu" if not cuda else "cuda")}
+
+
+def spans_table(spans: dict) -> str:
+    """``idle_by_span``'s result as lines, the most idle first."""
+    rows = sorted(spans.items(), key=lambda kv: -kv[1]["idle_ms"])
+    return "\n".join([f"{'idle ms':>8}  {'host ms':>8}  span (device idle "
+                      "by the span running at the gap's start)"]
+                     + [f"{v['idle_ms']:8.3f}  {v['host_ms']:8.3f}  {k}"
+                        for k, v in rows])
 
 
 def kinds_line(res: dict) -> str:
@@ -178,6 +232,7 @@ def run(args: argparse.Namespace) -> dict:
     print(f"host: {res['host_ms']:.3f} ms/iter (profiled); device idle "
           f"{res['idle']:.1%}")
     print(f"by kind: {kinds_line(res)}\n")
+    print(spans_table(res["spans"]) + "\n")
     print(f"{'ms/iter':>8}  {'calls':>5}  kernel")
     for name, ms, n in res["kernels"][:args.top]:
         print(f"{ms / args.iters:8.3f}  {n // args.iters:5d}  {name[:100]}")

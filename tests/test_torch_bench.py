@@ -13,6 +13,7 @@ import torch
 
 from multispectral_object_detection_tpu_torch import bench
 from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
+from multispectral_object_detection_tpu_torch.utils import tracing
 from tests._torch_port import share_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,13 +31,13 @@ SMALL = ["--device", "cpu", "--scale", "n", "--img", "64", "--batch", "2",
      "cft_n_64_dual_stream_inference_pairs_per_sec_per_chip"),
 ])
 def test_bench_cpu_smoke(extra, metric):
-    k2.reset_launches()
+    before = tracing.counter(k2.COUNTER)
     line = bench.run(SMALL + list(extra))
     assert line["metric"] == metric
     assert line["unit"] == "image-pairs/s"
     assert line["value"] > 0 and line["card"] == "cpu"
     assert line["forwards"] == (1 + 3) * (3 if "--tta" in extra else 1)
-    assert k2.LAUNCHES["c3_bottleneck"] == 0  # the CPU runs plain versions
+    assert tracing.counter(k2.COUNTER) == before  # the CPU runs plain versions
 
 
 def test_bench_c3_kernel_leg_routes_the_fitting_blocks():

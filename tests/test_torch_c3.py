@@ -37,6 +37,7 @@ from multispectral_object_detection_tpu_torch.ops import c3_bottleneck as k2
 from multispectral_object_detection_tpu_torch.ops.cft_stack import (
     fused_cft_stack_plain)
 from multispectral_object_detection_tpu_torch.train.tta import tta_forward
+from multispectral_object_detection_tpu_torch.utils import tracing
 from multispectral_object_detection_tpu_torch.utils.jax_import import (
     state_dict_from_jax)
 from tests._torch_port import (  # noqa: F401
@@ -91,9 +92,9 @@ def test_plain_bf16_rounding_points_match_jax_reference():
 
 def test_wrapper_on_cpu_takes_plain_path_and_counts_nothing():
     t = _torch(_k2_inputs((1, 5, 7, 64), seed=4))
-    k2.reset_launches()
+    before = tracing.counter(k2.COUNTER)
     assert torch.equal(k2.c3_bottleneck(*t), k2.c3_bottleneck_plain(*t))
-    assert k2.LAUNCHES == {"c3_bottleneck": 0}
+    assert tracing.counter(k2.COUNTER) == before
 
 
 def test_wrapper_rejects_mixed_devices():
@@ -392,9 +393,9 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, shape, dtype, tol):
     torch.backends.cudnn.allow_tf32 = False
     t = [v.to(cuda_device) for v in _torch(_k2_inputs(shape, seed=8), dtype)]
-    k2.reset_launches()
+    before = tracing.counter(k2.COUNTER)
     got = k2.c3_bottleneck(*t).float()
     torch.cuda.synchronize()
     want = k2.c3_bottleneck_plain(*t).float()
-    assert k2.LAUNCHES["c3_bottleneck"] == 2
+    assert tracing.counter(k2.COUNTER) - before == 2
     assert (got - want).abs().max() <= tol * want.abs().max()

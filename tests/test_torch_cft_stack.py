@@ -14,6 +14,7 @@ from multispectral_object_detection_tpu_torch.models.configs import (
 from multispectral_object_detection_tpu_torch.models.parser import (
     parse_model_config)
 from multispectral_object_detection_tpu_torch.ops import cft_stack as cs
+from multispectral_object_detection_tpu_torch.utils import tracing
 from tests._torch_port import share_torch_threads  # noqa: F401
 
 # the JAX twin as one compiled program per shape (op by op it compiles each
@@ -311,9 +312,9 @@ def _wrapper_cases():
                                   "fused_cft_stack"])
 def test_wrapper_on_cpu_takes_plain_path_and_counts_nothing(name):
     kernel_fn, plain_fn = _wrapper_cases()[name]
-    cs.reset_launches()
+    before = tracing.counters("k1.")
     assert torch.equal(kernel_fn(), plain_fn())
-    assert all(v == 0 for v in cs.LAUNCHES.values()), cs.LAUNCHES
+    assert tracing.counters("k1.") == before
 
 
 def test_wrappers_reject_mixed_devices_and_misused_out():
@@ -341,11 +342,11 @@ def test_cuda_stack_matches_plain(cuda_device, dtype, tol):
     x, ws = _inputs(4, 256, 2, seed=8)
     t, _ = _cast(x, ws, dtype, jnp.float32)
     t = [v.to(cuda_device) for v in t]
-    cs.reset_launches()
+    before = tracing.counter("k1.cft_attention")
     got = cs.fused_cft_stack(*t).float()
     torch.cuda.synchronize()
     want = cs.fused_cft_stack_plain(*t).float()
-    assert cs.LAUNCHES["cft_attention"] == 2
+    assert tracing.counter("k1.cft_attention") - before == 2
     assert (got - want).abs().max() <= tol * want.abs().max()
 
 

@@ -16,6 +16,7 @@ from multispectral_object_detection_tpu.ops.nms import (
 from multispectral_object_detection_tpu_torch.ops.boxes import (
     pairwise_iou, xywh_to_xyxy)
 from multispectral_object_detection_tpu_torch.ops.nms import batched_nms
+from multispectral_object_detection_tpu_torch.utils import tracing
 from tests._torch_port import share_torch_threads  # noqa: F401
 
 
@@ -170,8 +171,10 @@ def test_nms_identical_to_jax(name):
         tkw.update(labels=torch.from_numpy(labels),
                    labels_mask=torch.from_numpy(lmask))
     want = jax_batched_nms(jnp.asarray(pred), **jkw)
-    stats = {}
-    got = batched_nms(torch.from_numpy(pred), stats=stats, **tkw)
+    before = tracing.counters("nms.")
+    got = batched_nms(torch.from_numpy(pred), **tkw)
+    stats = {k[4:]: v - before.get(k, 0)
+             for k, v in tracing.counters("nms.").items()}
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.classes.numpy(),
                                   np.asarray(want.classes))

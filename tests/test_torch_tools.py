@@ -400,6 +400,43 @@ def test_by_kind_first_match_wins():
         profile_model.by_kind([], profile_model.SERVING_KINDS)
 
 
+def test_idle_by_span_charges_each_gap_to_the_innermost_span():
+    from types import SimpleNamespace as NS
+
+    def ev(name, dev, a, b, note=False):
+        return NS(name=name, device_type=NS(name=dev), is_user_annotation=note,
+                  time_range=NS(start=a, end=b))
+
+    events = [ev("ProfilerStep#1", "CPU", 0, 100, True),
+              ev("call", "CPU", 0, 90, True), ev("nms", "CPU", 40, 80, True),
+              ev("nms", "CUDA", 41, 60, True),  # its gpu_user_annotation
+              ev("k1", "CUDA", 10, 30), ev("k2", "CUDA", 20, 42),
+              ev("k3", "CUDA", 50, 55), ev("k4", "CUDA", 85, 95),
+              ev("k5", "CUDA", 96, 99)]
+    got = profile_model.idle_by_span(events, runs=2)
+    # gaps: 42-50 at 42 (inside nms), 55-85 at 55 (nms), 95-96 (no span)
+    assert got == {"call": {"idle_ms": 0.0, "host_ms": 0.045},
+                   "nms": {"idle_ms": 0.019, "host_ms": 0.02},
+                   "(no span)": {"idle_ms": 0.0005, "host_ms": 0.0}}
+
+
+def test_kernel_events_leave_out_the_span_annotations():
+    from types import SimpleNamespace as NS
+
+    def avg(key, dev, ms, note=False):
+        return NS(key=key, device_type=NS(name=dev), is_user_annotation=note,
+                  self_device_time_total=ms * 1e3, count=1,
+                  self_cpu_time_total=ms * 1e3)
+
+    prof = NS(key_averages=lambda: [
+        avg("ProfilerStep#2", "CPU", 9.0, True),
+        avg("model.forward", "CUDA", 30.0, True),  # gpu_user_annotation
+        avg("model.forward", "CPU", 35.0, True),
+        avg("sm90_xmma_fprop", "CUDA", 2.0), avg("aten::add", "CPU", 1.0)])
+    assert profile_model.kernel_events(prof) == [("sm90_xmma_fprop", 2.0, 1)]
+    assert profile_model.kernel_events(prof, "cpu") == [("aten::add", 1.0, 1)]
+
+
 def test_profile_model_on_the_cpu(capsys):
     args = profile_model.parse_args(["--cfg-scale", "n", "--img", str(IMG),
                                      "--batch", "1", "--iters", "1", "--top",
@@ -410,5 +447,7 @@ def test_profile_model_on_the_cpu(capsys):
     assert len(out.split("ms/iter  calls  kernel\n")[1].splitlines()) == 5
     assert res["device_ms"] == pytest.approx(
         sum(v["ms"] for v in res["by_kind"].values()))
+    assert {"model.forward", "fusion.cft", "nms"} <= set(res["spans"])
+    assert res["spans"]["model.forward"]["host_ms"] > 0
     if not torch.cuda.is_available():  # no fallback to the CPU
         assert profile_model.main([]) == 1 and mfu.main([]) == 1

@@ -68,7 +68,7 @@ from multispectral_object_detection_tpu_torch.train.optim import (
     OptHyp, build_optimizer)
 from multispectral_object_detection_tpu_torch.train.trainer import (
     TrainState, make_train_step)
-from multispectral_object_detection_tpu_torch.utils import autoanchor
+from multispectral_object_detection_tpu_torch.utils import autoanchor, tracing
 from multispectral_object_detection_tpu_torch.utils.checkpoint import (
     load_checkpoint, load_inference_params, partial_load, save_checkpoint,
     strip_checkpoint)
@@ -462,15 +462,16 @@ def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(monkeypatch):
         with pytest.raises(RuntimeError, match="no backward"):
             fn()
         assert not calls
-    before = dict(cft_stack.LAUNCHES)
-    try:
-        with torch.no_grad():  # eval and serving: the kernels launch
-            cft_stack.layer_norm(x, scale, bias, torch.float32)
-            cft_stack.linear(x, w, b, "bias")
-            cft_stack.attention(qkv, 1, 8)
-    finally:
-        cft_stack.LAUNCHES.update(before)
+    before = tracing.counters("k1.")
+    with torch.no_grad():  # eval and serving: the kernels launch
+        cft_stack.layer_norm(x, scale, bias, torch.float32)
+        cft_stack.linear(x, w, b, "bias")
+        cft_stack.attention(qkv, 1, 8)
     assert calls == ["cft_layernorm", "cft_gemm", "cft_attention"]
+    after = tracing.counters("k1.")
+    assert {k: after[k] - before.get(k, 0) for k in after} == {
+        **{k: 0 for k in before}, "k1.cft_layernorm": 1,
+        "k1.cft_gemm_bias": 1, "k1.cft_attention": 1}
 
 
 def _step_and_grads(remat: str, seed: int = 11):
