@@ -17,7 +17,10 @@ failure raises and the script exits non-zero:
    the fused C3 bottleneck (K2) at the shapes of the l@640 and x@1024 bench
    legs, at an odd shape and at the edges of its TMA boxes (an image
    smaller than one box, ragged boxes, C = 192 and 320), in bf16 with bf16
-   and fp32 biases and in fp32.
+   and fp32 biases and in fp32; greedy NMS's suppression (K3) against the
+   plain loop, bit for bit, at the eval protocol's shapes (32 images of
+   20,160 and of 30,000 candidates, max_det 300, 1 and 0; one image of one
+   candidate).
 3. the main path: ``Detector`` on the l-scale two-stream transformerx3
    config (nc=1, random weights from a seed, BN folded, bf16) serves three
    requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
@@ -40,7 +43,8 @@ failure raises and the script exits non-zero:
    ``--save-hybrid``, ``--augment``, two checkpoints with
    ``--ensemble-mode cat`` and ``ds``, ``--int8`` and ``--task speed``.
    Checks finite metrics over all 64 images, hybrid mAP50 and mAP >= 0.95,
-   the K1 launches of every run's forwards, and one eval batch's decoded
+   the K1 launches of every run's forwards, one K3 launch per batch, and
+   one eval batch's decoded
    outputs through the kernels against the plain stack; one evaluate pass
    of two batches under the profiler gives the device's idle ms by program
    span (``tools/profile_model.idle_by_span``). Then a JPEG leg
@@ -78,7 +82,9 @@ failure raises and the script exits non-zero:
    its achieved TFLOP/s and share of the bound, its plain version and one
    PyTorch library call for the same function; LayerNorm and attention at
    the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
-   K2's two launches apart; the main path's ms per batch and its profile.
+   K2's two launches apart; K3 at an eval batch's shapes (device ms, ms a
+   pick, its byte bound, the plain loop's ms); the main path's ms per batch
+   and its profile.
 8. training (about two minutes): one fp32 train step of the n-scale
    two-stream CFT (nc=2, 128 px, batch 2, dropout off, TF32 off) on the
    card against the CPU (loss and every gradient); one bf16 step of the
@@ -197,6 +203,22 @@ K2_ODD_SHAPE = (2, 17, 23, 64)
 # and five 64-channel slabs
 K2_EDGE_SHAPES = ((1, 3, 5, 64), (2, 13, 19, 128), (2, 24, 40, 192),
                   (2, 24, 40, 320))
+# K3 (greedy NMS) at the eval protocol's shapes: (images, candidates an
+# image, max_det, clusters, conf); 20,160 is one 640x512 canvas's anchors at
+# nc 1, 30,000 the top_k cut of nc 3 with multi-label candidates; boxes
+# spread over the canvas (clusters 0) or packed into clusters, where most
+# candidates die and the picks reach K3's last tiles. The last row is the
+# serve cells' call (16 images, top_k 1024, max_det 300) with no candidate
+# past the gate, as a random-weight head gives none at conf 0.25.
+K3_SHAPES = ((32, 20160, 300, 0, 0.001), (32, 30000, 300, 0, 0.001),
+             (32, 20160, 1, 0, 0.001), (32, 20160, 0, 0, 0.001),
+             (1, 1, 300, 0, 0.001), (32, 20160, 300, 24, 0.001),
+             (8, 20160, 2000, 24, 0.001), (16, 1024, 300, 0, 1.0))
+K3_IOU = 0.6
+K3 = {"name": "nms_suppress", "route": "cuda", "source": "multispectral_"
+      "object_detection_tpu_torch/kernels/csrc/nms.cu", "replaces": "none: "
+      "the Python loop of ops/nms._suppress (the JAX package's NMS is an "
+      "XLA loop)"}
 # max |kernel - plain| / max |plain|, with the reason for each bound:
 TOL_FP32 = 2e-5        # sum order only (fp32 FMA both sides, no TF32)
 TOL_BF16 = 8e-3        # both round the same fp32 value: <= 2 bf16 ulps apart
@@ -233,6 +255,15 @@ def kernel_launches(since=None) -> dict:
     now = {n.split(".", 1)[1]: int(tracing.counter(n))
            for n in (*cs.COUNTERS, k2.COUNTER)}
     return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
+def k3_launches(since: int = 0) -> int:
+    """K3's launches (``k3.nms_suppress``) less ``since``, an earlier
+    reading."""
+    from multispectral_object_detection_tpu_torch.ops import nms
+    from multispectral_object_detection_tpu_torch.utils import tracing
+
+    return int(tracing.counter(nms.COUNTER)) - since
 
 
 def k1_launches(since) -> int:
@@ -390,6 +421,112 @@ def phase_checks(torch, cs, k2, device):
     return worst
 
 
+def nms_inputs(torch, B: int, K: int, gen, device, clusters: int = 0,
+               conf: float = 0.001):
+    """``ops/nms._select``'s outputs at the eval protocol (multi-label, conf
+    0.001) for B images of K candidates (K3_SHAPES, top_k K): seeded boxes
+    in a 640x512 canvas, or in ``clusters`` clusters an image, scores
+    rounded to bf16 as the head rounds them (many ties); at conf 1.0 none
+    passes the gate and every score is ``_NEG``."""
+    from multispectral_object_detection_tpu_torch.ops import nms
+
+    nc = 3 if K > 20160 else 1
+    n = 20160 if K > 1 else 1
+    xy = torch.rand(B, n, 2, generator=gen) * torch.tensor([640.0, 512.0])
+    wh = 10 + 110 * torch.rand(B, n, 2, generator=gen)
+    if clusters:
+        centres = 100 + 400 * torch.rand(B, clusters, 2, generator=gen)
+        pick = torch.randint(0, clusters, (B, n), generator=gen)
+        xy = (torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+              + 24 * torch.rand(B, n, 2, generator=gen) - 12)
+        wh = 30 + 30 * torch.rand(B, n, 2, generator=gen)
+    cls = torch.rand(B, n, nc, generator=gen)
+    cls = cls / cls.sum(-1, keepdim=True)
+    obj = torch.rand(B, n, 1, generator=gen)
+    pred = torch.cat([xy, wh, torch.cat([obj, cls], -1).bfloat16().float()],
+                     -1).to(device)
+    _, shifted, scores, _ = nms._select(pred, conf, None, True, False,
+                                        K, None, None, None)
+    check(scores.shape == (B, K), f"K3 inputs {tuple(scores.shape)}")
+    return shifted, scores
+
+
+def phase_k3_checks(torch, device) -> int:
+    """Phase 2, K3: the kernel against the plain loop on the card at
+    K3_SHAPES, indices, validity and both counters bit for bit, one launch
+    each. Returns the most output slots that differed at one shape."""
+    from multispectral_object_detection_tpu_torch.ops import nms
+    from multispectral_object_detection_tpu_torch.utils import tracing
+
+    gen = torch.Generator().manual_seed(3)
+    worst = 0
+    for B, K, max_det, clusters, conf in K3_SHAPES:
+        shifted, scores = nms_inputs(torch, B, K, gen, device, clusters,
+                                     conf)
+        want_i, want_v, _, want_c = nms._suppress_plain(
+            shifted, scores, K3_IOU, max_det)
+        before = tracing.counter(nms.COUNTER)
+        idxs, vals, picks, cands = nms._suppress(shifted, scores, K3_IOU,
+                                                 max_det)
+        torch.cuda.synchronize()
+        bad = int((idxs != want_i).sum() + (vals != want_v).sum())
+        picks, cands = int(picks), int(cands)
+        want_p = int(want_v.sum(1).max()) if B else 0
+        last = int(idxs[vals].max()) if picks else -1
+        worst = max(worst, bad)
+        print(f"check nms_suppress       fp32     {(B, K, max_det)!s:<22} "
+              f"clusters {clusters} conf {conf}: slots differing {bad}, picks "
+              f"{picks}/{want_p}, candidates {cands}/{want_c}, last kept "
+              f"index {last}")
+        check(bad == 0 and picks == want_p and cands == want_c,
+              f"nms_suppress {(B, K, max_det)}: {bad} slots differ, picks "
+              f"{picks} != {want_p} or candidates {cands} != {want_c}")
+        check(int(tracing.counter(nms.COUNTER) - before) == 1,
+              "nms_suppress: not one launch")
+    return worst
+
+
+def k3_timing(torch, device, card: str) -> dict:
+    """Phase 7, K3: device ms of one launch at an eval batch's shapes
+    (CUDA events over 20 launches), ms a pick, its byte bound (each input
+    byte read once, each output byte written once, at 3.35 TB/s) and the
+    plain loop's ms (host wall, synchronised: it waits on the device every
+    8 steps)."""
+    from multispectral_object_detection_tpu_torch.ops import nms
+
+    gen = torch.Generator().manual_seed(4)
+    rows = {}
+    for B, K, max_det, clusters, conf in (K3_SHAPES[:2] + K3_SHAPES[5:6]
+                                         + K3_SHAPES[-1:]):
+        shifted, scores = nms_inputs(torch, B, K, gen, device, clusters,
+                                     conf)
+        ms = cuda_ms(lambda: nms.nms_suppress(shifted, scores, K3_IOU,
+                                              max_det), iters=20)
+        picks = int(nms.nms_suppress(shifted, scores, K3_IOU,
+                                     max_det)[2][:, 1].max())
+        plain = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nms._suppress_plain(shifted, scores, K3_IOU, max_det)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        nbytes = B * K * 20 + B * max_det * 9 + B * 16
+        row = (f"B{B}_K{K}" + ("_clusters" if clusters else "")
+               + ("_empty" if conf >= 1 else ""))
+        rows[row] = {
+            "ms": ms, "picks": picks, "us_per_pick": ms * 1e3 / max(picks, 1),
+            "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "plain_ms": statistics.median(plain)}
+        r = rows[row]
+        print(f"K3 nms_suppress B={B} K={K} max_det={max_det} clusters "
+              f"{clusters} conf {conf} on {card}: "
+              f"{ms:.4f} ms, {picks} picks, {r['us_per_pick']:.2f} us a "
+              f"pick; byte bound {r['bytes_bound_ms']:.4f} ms; plain loop "
+              f"{r['plain_ms']:.1f} ms")
+    return rows
+
+
 def phase_main_path(torch, device):
     """Phase 3: the Detector serves REQUESTS batches through the kernels."""
     from multispectral_object_detection_tpu_torch.hub import Detector
@@ -417,12 +554,14 @@ def phase_main_path(torch, device):
                                    dtype=torch.uint8, device=device,
                                    generator=gen) for _ in range(2))
                for _ in range(REQUESTS)]
-    l0 = kernel_launches()
+    l0, k3_0 = kernel_launches(), k3_launches()
     outs = [det.infer(rgb, ir) for rgb, ir in batches]
     torch.cuda.synchronize()
     launches = kernel_launches(l0)
     want = {k: REQUESTS * v for k, v in per_forward.items()}
     want["c3_bottleneck"] = 0  # off by default, as in the JAX package
+    launches["nms_suppress"] = k3_launches(k3_0)
+    want["nms_suppress"] = REQUESTS  # one batched_nms a call
     print(f"main path: kernel launches over {REQUESTS} requests {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     for o in outs:
@@ -622,16 +761,20 @@ def phase_eval(torch, device):
                  "--project", str(root / "runs")] + extra)
             args.data = data
             l0 = kernel_launches()
+            k3_0 = k3_launches()
             t0 = time.perf_counter()
             res = test_cli.run(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = kernel_launches(l0)
+            k3 = k3_launches(k3_0)
             forwards = (3 + 20) if name == "speed" else batches * fwd_per_batch
             want = {k: v * forwards for k, v in per_forward.items()}
             print(f"eval {name}: {wall:.2f} s, {forwards} forwards, "
-                  f"launches {got}")
+                  f"launches {got}, K3 {k3}")
             check(got == want, f"eval {name}: launch counts {got} != {want}")
+            check(name == "speed" or k3 == batches,
+                  f"eval {name}: {k3} K3 launches for {batches} batches")
             if name == "speed":
                 check(res["ms_per_image"] > 0, "speed task")
                 out[name] = {"ms_per_image": res["ms_per_image"],
@@ -3133,6 +3276,7 @@ def main() -> int:
         print(f"  {name}: {'; '.join(regs)}")
 
     worst = phase_checks(torch, cs, k2, device)
+    k3_worst = phase_k3_checks(torch, device)
     print("phase 2: every kernel matches its plain version")
     det, batches, stages, launches = phase_main_path(torch, device)
     print("phase 3: main path served through the kernels")
@@ -3147,6 +3291,7 @@ def main() -> int:
           "served through the kernels")
     rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
                                stages, card)
+    k3_rows = k3_timing(torch, device, card)
     del det, batches, stages
     torch.cuda.empty_cache()
     train, run_of_8 = phase_train(torch, device, card)
@@ -3173,6 +3318,12 @@ def main() -> int:
                     "max_abs_err": worst[name], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    k3 = k3_rows["B32_K20160"]
+    out.append({**K3, "launches": launches["nms_suppress"],
+                "max_abs_err": k3_worst, "ms": k3["ms"],  # slots differing
+                "plain_ms": k3["plain_ms"], "bound_ms": k3["bytes_bound_ms"],
+                "bound_by": "bytes; in fact the chain of dependent picks",
+                "library_ms": None, "us_per_pick": k3["us_per_pick"]})
     print(json.dumps({"eval": eval_runs}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))

@@ -40,6 +40,7 @@ SIGNATURES = {
     "attention": {"cft_attention": [_P, _P, _I, _I, _I, _I, _I, _P]},
     "c3_bottleneck": {"c3_conv": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P]},
+    "nms": {"nms_suppress": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P]},
 }
 # dtype codes of the kernels' entry points (csrc/cft_common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -9,9 +9,12 @@ Counterpart of multispectral_object_detection_tpu/ops/nms.py:
 - top-k by a stable descending sort, so tied scores keep ascending index
   order, as ``jax.lax.top_k`` does (``torch.topk`` orders ties otherwise);
 - class-offset trick (boxes + cls * 4096) for per-class NMS in one pass;
-- greedy argmax-and-suppress, a loop over iterations vectorised across the
-  batch, ties to the lower index, stopping once no image has a candidate
-  (or, ``fixed_trip``, after ``max_det`` iterations with no host read);
+- greedy argmax-and-suppress, ties to the lower index: on CUDA tensors
+  kernel K3 ``nms_suppress`` (kernels/csrc/nms.cu), every step of every
+  image in one launch with no host read; on CPU tensors, and with
+  ``fixed_trip`` (the exported graph), its plain twin, a loop over steps
+  vectorised across the batch that stops once no image has a candidate
+  (or, ``fixed_trip``, after ``max_det`` steps with no host read);
 - optional weighted merge: each kept box becomes the score-weighted mean
   of the candidates that overlap it above the IoU threshold (in
   class-offset space), for 1 < candidates < 3000 per image; ``redundant``
@@ -19,10 +22,17 @@ Counterpart of multispectral_object_detection_tpu/ops/nms.py:
 - fixed ``max_det`` outputs with a validity mask.
 
 Spans (utils/tracing): ``nms`` around the whole call, ``nms.select``
-(gate, sort, gather), ``nms.suppress`` (the greedy loop) and, in it,
-``sync.nms_exit`` for each early-exit check's wait on the device.
-Counters: ``nms.candidates`` (past the gate; the first exit check reads
-them, so counting adds no device work) and ``nms.iterations``.
+(gate, sort, gather), ``nms.suppress`` (K3's launch, or the plain loop)
+and, in the plain loop without ``fixed_trip``, ``sync.nms_exit`` for each
+early-exit check's wait on the device. Counters: ``nms.candidates``
+(candidates past the gate; 0 when ``max_det`` is 0) and
+``nms.iterations``. On CUDA both are device tensors that K3 wrote (the
+sum of its per-image counts, and the batch's largest number of picks) and
+``k3.nms_suppress`` counts K3's launches, one a call (none for an
+empty batch). On the CPU
+``nms.candidates`` is read by the first exit check, so counting adds no
+device work, and ``nms.iterations`` counts the loop's steps, which may
+run up to 7 past the last pick (a check every 8 steps).
 """
 
 from __future__ import annotations
@@ -31,13 +41,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels import check_args, launch, on_cpu, ptr, require
 from ..utils.tracing import count, span
 from .boxes import pairwise_iou, xywh_to_xyxy
+
+COUNTER = "k3.nms_suppress"
 
 _MAX_WH = 4096.0  # class-offset stride
 _NEG = -1e9
 _EXIT_CHECK_EVERY = 8  # iterations between host checks for early exit
 _MERGE_MAX_CAND = 3000  # the merge runs for 1 < candidates < this
+K3_MAX_K = (1 << 30) - 1  # K3's candidates per image (csrc/nms.cu)
+K3_MAX_DET = (1 << 31) - 1  # K3's max_det, an int of its C entry point
 
 
 class Detections(NamedTuple):
@@ -56,12 +71,13 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
-              max_det: int, fixed_trip: bool = False):
-    """Greedy NMS over (B, K, 4)/(B, K) -> kept indices (B, max_det),
-    validity (B, max_det), the number of iterations run and the number
-    of candidates (scores above ``_NEG``: an int, or with ``fixed_trip``
-    a device tensor; 0 when ``max_det`` is 0).
+def _suppress_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                    iou_thres: float, max_det: int, fixed_trip: bool = False):
+    """Greedy NMS over (B, K, 4)/(B, K) on any device, K3's plain twin ->
+    kept indices (B, max_det), validity (B, max_det), the number of
+    iterations run and the number of candidates (scores above ``_NEG``:
+    an int, or with ``fixed_trip`` a device tensor; 0 when ``max_det`` is
+    0).
 
     An iteration after an image's last candidate changes nothing for it,
     so the loop may check for its early exit only every few iterations
@@ -109,6 +125,58 @@ def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
         vals[rows, n] = keep
         n += keep.long()
     return idxs, vals, it, candidates
+
+
+def check_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int) -> None:
+    """Raise ValueError for arguments that K3 does not take. Reads shapes
+    and dtypes only, so it runs on CPU or meta tensors."""
+    require(scores.dim() == 2 and boxes.shape == scores.shape + (4,),
+            f"nms_suppress: boxes {tuple(boxes.shape)} and scores "
+            f"{tuple(scores.shape)} must be (B, K, 4) and (B, K)")
+    require(boxes.dtype == scores.dtype == torch.float32,
+            "nms_suppress: boxes and scores must be float32")
+    require(scores.shape[1] <= K3_MAX_K,
+            f"nms_suppress: K={scores.shape[1]} candidates, at most "
+            f"{K3_MAX_K}")
+    require(0 <= max_det <= K3_MAX_DET,
+            f"nms_suppress: max_det={max_det}, at most {K3_MAX_DET}")
+
+
+def nms_suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                 max_det: int):
+    """Kernel ``nms_suppress`` (kernels/csrc/nms.cu), one launch, on
+    ``_select``'s CUDA outputs -> kept indices (B, max_det), validity
+    (B, max_det) and per image [candidates, picks] (B, 2) int64, as the
+    plain loop gives them; ``iou_thres`` is compared as a float32. An
+    empty batch has nothing to suppress: its empty outputs, no launch."""
+    check_nms(boxes, scores, max_det)
+    B, K = scores.shape
+    dev = scores.device
+    idxs = torch.empty((B, max_det), dtype=torch.long, device=dev)
+    vals = torch.empty((B, max_det), dtype=torch.bool, device=dev)
+    stats = torch.empty((B, 2), dtype=torch.long, device=dev)
+    if B == 0:
+        return idxs, vals, stats
+    check_args("nms_suppress", boxes=boxes, scores=scores, idxs=idxs,
+               vals=vals, stats=stats)
+    launch("nms", "nms_suppress", dev, ptr(boxes), ptr(scores), B, K,
+           max_det, float(iou_thres), ptr(idxs), ptr(vals), ptr(stats))
+    count(COUNTER)
+    return idxs, vals, stats
+
+
+def _suppress(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+              max_det: int, fixed_trip: bool = False):
+    """Greedy NMS -> kept indices (B, max_det), validity (B, max_det), the
+    ``nms.iterations`` and ``nms.candidates`` counts: K3 on CUDA tensors
+    (the batch's largest number of picks and the candidates, as device
+    tensors; 0 for an empty batch, as the plain loop counts it), else
+    ``_suppress_plain``."""
+    if fixed_trip or on_cpu(boxes, scores):
+        return _suppress_plain(boxes, scores, iou_thres, max_det, fixed_trip)
+    idxs, vals, stats = nms_suppress(boxes, scores, iou_thres, max_det)
+    picks = stats[:, 1].max() if len(stats) else stats.new_zeros(())
+    return idxs, vals, picks, stats[:, 0].sum()
 
 
 def _with_labels(pred: torch.Tensor, labels: torch.Tensor,

@@ -53,7 +53,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
     (upload + forward + decode), ``t_nms_ms`` and ``t_match_ms`` (host
     matching), and the NMS load: ``nms_candidates`` (candidates past the
     confidence gate per image) and ``nms_iterations`` (suppression steps
-    per batch).
+    per batch: the loop's steps on the CPU, the largest number of picks
+    on CUDA; ops/nms).
 
     forward(rgb, ir): uint8 (B, H, W, 3) tensors on ``device`` -> (decoded
         (B, N, 5+nc) detections, anything).
@@ -180,8 +181,8 @@ def evaluate(forward: Callable, loader, nc: int, *, device,
     out["t_match_ms"] = 1000.0 * t_match / per
     out["nms_candidates"] = int(counter("nms.candidates")
                                 - nms0["nms.candidates"]) / per
-    out["nms_iterations"] = (counter("nms.iterations")
-                             - nms0["nms.iterations"]) / max(len(loader), 1)
+    steps = int(counter("nms.iterations") - nms0["nms.iterations"])
+    out["nms_iterations"] = steps / max(len(loader), 1)
     if n_loss:
         out["val_loss"] = (loss_sum / n_loss).tolist()
     if shard is not None:  # rank 0's metrics on every rank

@@ -17,8 +17,12 @@ profiler it does not, as that costs ten times the span itself.
 ``count(name, n)`` adds ``n`` to a named counter, in one table that
 every thread adds to under a lock. ``n`` may be a device tensor: the sum
 stays on the device and is read to the host only when ``counters`` reads
-it, so counting adds no synchronisation. A tensor counted while
-``torch.export`` traces is not kept.
+it, so counting adds no synchronisation. A count on another card than
+the counter's is copied to the counter's card (on the devices' streams,
+not through the host). Nothing counted while
+``torch.export`` traces is kept: its tensors are stand-ins, and even an
+int added to a counter that holds a device tensor would turn the counter
+into one.
 
 Spans: ``detector.infer``, ``detector.upload`` (hub.Detector);
 ``model.forward``, ``model.decode`` (models/model.DetectionModel);
@@ -27,10 +31,13 @@ Spans: ``detector.infer``, ``detector.upload`` (hub.Detector);
 ``nms.select``, ``nms.suppress``, ``sync.nms_exit`` (ops/nms);
 ``eval.batch``, ``eval.infer``, ``eval.upload``, ``eval.forward``,
 ``sync.eval_forward``, ``eval.nms``, ``sync.eval_fetch``, ``eval.match``,
-``eval.summary`` (train/evaluator). Counters: ``nms.candidates`` and
-``nms.iterations`` (ops/nms); ``k1.<kernel>``
-(ops/cft_stack) and ``k2.c3_bottleneck`` (ops/c3_bottleneck), one per
-kernel launch.
+``eval.summary`` (train/evaluator); ``sync.nms_exit`` only on NMS's plain
+path (CPU tensors), as K3 reads nothing back. Counters: ``nms.candidates``
+and ``nms.iterations`` (ops/nms: on the CPU the candidates read by the
+first exit check and the loop's steps, host ints; on CUDA device tensors
+that K3 wrote, the candidates and the batch's largest number of picks);
+``k1.<kernel>`` (ops/cft_stack), ``k2.c3_bottleneck`` (ops/c3_bottleneck)
+and ``k3.nms_suppress`` (ops/nms), one per kernel launch.
 """
 
 from __future__ import annotations
@@ -107,10 +114,15 @@ class Registry:
         return Span(name, self)
 
     def count(self, name: str, n=1) -> None:
-        if isinstance(n, torch.Tensor) and _is_compiling():
-            return  # torch.export's stand-in for a value, not a count
+        if _is_compiling():
+            return  # a trace, not a call
         with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + n
+            held = self._counts.get(name, 0)
+            if (isinstance(n, torch.Tensor) and isinstance(held, torch.Tensor)
+                    and n.is_cuda and held.is_cuda
+                    and n.device != held.device):
+                n = n.to(held.device, non_blocking=True)
+            self._counts[name] = held + n
 
     def counter(self, name: str):
         """The counter as kept (a device tensor stays on the device)."""

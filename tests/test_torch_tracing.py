@@ -206,6 +206,25 @@ def test_nms_counts_nothing_while_exported():
     assert tracing.counters("nms.")["nms.candidates"] - before == 2
 
 
+def test_counts_while_exported_leave_a_device_counter_real():
+    """A counter that holds a tensor (K3's counts on CUDA), then counts of
+    an int and of a tensor while torch.export traces: kept, either would
+    turn the counter into the trace's stand-in, which later reads cannot
+    turn into a number."""
+    reg = tracing.Registry()
+    reg.count("c", torch.tensor(3))
+
+    class Counts(torch.nn.Module):
+        def forward(self, x):
+            reg.count("c", 300)
+            reg.count("c", x.sum())
+            return x + 1
+
+    torch.export.export(Counts(), (torch.ones(2),))
+    kept = reg.counter("c")
+    assert type(kept) is torch.Tensor and reg.counters() == {"c": 3}
+
+
 def test_evaluator_times_are_its_span_sums():
     batches, preds = _fake_batches()
     calls = []
