@@ -10,7 +10,9 @@ letterboxes them on the host (``data/augment.letterbox``), runs
 ``Detector.infer`` is the serving core that bench.py times (the JAX
 ``Detector._compile``'s ``infer``): uint8 batches at the canvas size /
 255 -> BN-folded forward in the compute dtype (the CFT stacks through the
-CUDA kernels) -> decode -> batched NMS.
+CUDA kernels) -> decode -> batched NMS; a set-prediction model
+(Deformable DETR, models/deformable_detr.py) reads one stream and its
+``select`` takes the place of decode and NMS.
 """
 
 from __future__ import annotations
@@ -187,6 +189,8 @@ class Detector:
         self.conf = conf
         self.iou = iou
         self.two_stream = self.model.spec.two_stream
+        # a set-prediction model's top-k selection, in place of NMS
+        self.select = getattr(self.model, "select", None)
         self.names = list(names) if names else [
             str(i) for i in range(self.model.spec.nc)]
 
@@ -204,18 +208,28 @@ class Detector:
             return t.permute(0, 3, 1, 2).float() / 255.0
 
     @torch.inference_mode()
-    def raw(self, rgb_u8, ir_u8):
-        """Raw per-scale Detect outputs (B, ny, nx, na, 5+nc) for a batch."""
+    def raw(self, rgb_u8, ir_u8=None):
+        """The model's raw outputs for a batch: per-scale Detect outputs
+        (B, ny, nx, na, 5+nc), or a set-prediction model's (logits,
+        boxes). A single-stream model reads and uploads ``rgb_u8`` alone."""
+        if not self.two_stream:
+            return self.model(self._to_nchw(rgb_u8))
         return self.model(self._to_nchw(rgb_u8), self._to_nchw(ir_u8))
 
     @torch.inference_mode()
-    def infer(self, rgb_u8, ir_u8) -> Detections:
-        """uint8 RGB and IR batches (B, S, S, 3) -> fixed-size Detections
-        (B, 300, ...) in canvas pixels; one ``detector.infer`` span."""
+    def infer(self, rgb_u8, ir_u8=None) -> Detections:
+        """uint8 RGB and IR batches (B, S, S, 3) (one batch for a
+        single-stream model) -> fixed-size Detections (B, 300, ...) in
+        canvas pixels, or a set-prediction model's top k; one
+        ``detector.infer`` span."""
         with span("detector.infer"):
-            dets = self.model.decode(self.raw(rgb_u8, ir_u8))
-            return batched_nms(dets, conf_thres=self.conf, iou_thres=self.iou,
-                               multi_label=False, max_det=300, top_k=1024)
+            raw = self.raw(rgb_u8, ir_u8)
+            if self.select is not None:
+                return self.select(raw, self.conf,
+                                   (self.img_size, self.img_size))
+            return batched_nms(self.model.decode(raw), conf_thres=self.conf,
+                               iou_thres=self.iou, multi_label=False,
+                               max_det=300, top_k=1024)
 
     @staticmethod
     def _to_img(x) -> np.ndarray:

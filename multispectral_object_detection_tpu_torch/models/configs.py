@@ -553,11 +553,26 @@ def yolov5_transformer(scale: str = "s", nc: int = 80) -> Dict:
     return cfg
 
 
+def deformable_detr_r50(nc: int = 91) -> Dict:
+    """Deformable DETR, base variant (arXiv:2010.04159; the official
+    configs/r50_deformable_detr.sh and main.py defaults): ResNet-50, 4
+    levels, 6 + 6 layers of 8 heads at 256, 4 points, FFN 1024, 300
+    queries, the top 100 detections (models/deformable_detr.py)."""
+    return {"arch": "deformable_detr", "num_classes": nc,
+            "resnet_blocks": [3, 4, 6, 3], "hidden_dim": 256, "nheads": 8,
+            "num_feature_levels": 4, "enc_n_points": 4, "dec_n_points": 4,
+            "enc_layers": 6, "dec_layers": 6, "dim_feedforward": 1024,
+            "num_queries": 300, "top_k": 100}
+
+
 def get_config(name: str, nc: Optional[int] = None) -> Dict:
     """Resolve a config by name, e.g. 'yolov5s', 'yolov5l6', 'yolov3-tiny',
     'yolov5l_fusion_transformerx3' or 'yolov5l_fusion_transformerx3_llvip'
-    (a dataset suffix sets nc: flir 3, llvip 1, vedai 9)."""
+    (a dataset suffix sets nc: flir 3, llvip 1, vedai 9), or
+    'deformable_detr_r50'."""
     name = name.lower().replace(".yaml", "")
+    if name == "deformable_detr_r50":
+        return deformable_detr_r50(91 if nc is None else nc)
     n_cls = 80 if nc is None else nc
     if name.startswith("yolov3"):
         if "tiny" in name:

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils.tracing import span
 from . import layers as L
+from .deformable_detr import DeformableDETR
 from .detect import Detect, anchor_arrays, decode_predictions
 from .fusion import CrossModalFusion, mix_seed
 from .parser import ModelSpec, Node, parse_model_config
@@ -217,9 +218,13 @@ def plain_kernels(model: nn.Module, stack_fn=None):
 def build_model(cfg, ch_in: int = 3, nc: Optional[int] = None, anchors=None,
                 dtype: torch.dtype = torch.float32, device=None,
                 use_c3_kernel: bool = False) -> DetectionModel:
-    """YAML path / dict / ModelSpec -> DetectionModel, in eval mode.
+    """YAML path / dict / ModelSpec -> DetectionModel, in eval mode; a
+    dict whose ``arch`` is "deformable_detr" -> DeformableDETR.
     ``device="meta"`` builds the structure without storage (parameter
     counts)."""
+    if isinstance(cfg, dict) and cfg.get("arch") == "deformable_detr":
+        with torch.device(device or "cpu"):
+            return DeformableDETR(cfg, nc=nc, dtype=dtype).eval()
     spec = cfg if isinstance(cfg, ModelSpec) else parse_model_config(
         cfg, ch_in=ch_in, nc=nc, anchors=anchors)
     with torch.device(device or "cpu"):
@@ -234,7 +239,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     normal(0, 0.02) with zero bias, their position embeddings zero; the
     zoo's Linears normal(0, 1/fan_in) with zero bias, the packed attention
     in-projection xavier-uniform with zero bias; ``Sum`` weights
-    -(1..n-1)/2; norms at identity; the Detect prior bias."""
+    -(1..n-1)/2; norms at identity; the Detect prior bias. A
+    DeformableDETR takes its own (``DeformableDETR.init_weights``)."""
+    if isinstance(model, DeformableDETR):
+        return model.init_weights(generator)
     cft = {id(m) for f in model.modules() if isinstance(f, CrossModalFusion)
            for m in f.modules()}
     for m in model.modules():
