@@ -20,13 +20,20 @@ failure raises and the script exits non-zero:
    and fp32 biases and in fp32; greedy NMS's suppression (K3) against the
    plain loop, bit for bit, at the eval protocol's shapes (32 images of
    20,160 and of 30,000 candidates, max_det 300, 1 and 0; one image of one
-   candidate).
+   candidate); deformable attention's sampling (K4) against its plain
+   ``grid_sample`` twin in bf16 and fp32 at the DETR cell's encoder (8
+   images of 21,760 tokens) and decoder shapes (300 queries, reference of
+   batch 8 and 1), one launch a call.
 3. the main path: ``Detector`` on the l-scale two-stream transformerx3
    config (nc=1, random weights from a seed, BN folded, bf16) serves three
    requests of 16 uint8 640x640 RGB+IR pairs. Checks the output shapes and
    values, that the kernel launch counters rose by exactly the launches of
    three forwards (K2 none: it is off by default), and that the raw head
-   outputs agree with a run through the plain stack.
+   outputs agree with a run through the plain stack. Then the DETR cell's
+   path: a Deformable DETR R50 (bf16, seeded official init with a non-zero
+   box head) serves ``Detector.infer`` on 8 uint8 frames at 1024 px; the
+   K4 launches of one call (12) and its logits and boxes against the same
+   call on the plain path.
 4. the port's bench (``multispectral_object_detection_tpu_torch.bench``) at
    full width, a few batches per leg: default, ``--c3-kernel``, ``--int8``,
    ``--tta --c3-kernel``, ``--fp32-params``, ``--no-nms`` at l@640 bs16, and
@@ -83,8 +90,13 @@ failure raises and the script exits non-zero:
    PyTorch library call for the same function; LayerNorm and attention at
    the x scale's P5 stage, K2 over one x@1024 bs8 forward's 24 blocks, and
    K2's two launches apart; K3 at an eval batch's shapes (device ms, ms a
-   pick, its byte bound, the plain loop's ms); the main path's ms per batch
-   and its profile.
+   pick, its byte bound, the plain loop's ms); K4 at the DETR cell's
+   shapes (``k4_timing``: device ms of an encoder and a decoder call at 8
+   images and of a forward's 12 calls, beside K4's own bound from the
+   bytes its inputs make it gather and its fp32 FLOPs, and beside
+   ``work_detr``'s bound; the plain twin's ms as the yardstick); the main
+   path's ms per batch and its
+   profile.
 8. training (about two minutes): one fp32 train step of the n-scale
    two-stream CFT (nc=2, 128 px, batch 2, dropout off, TF32 off) on the
    card against the CPU (loss and every gradient); one bf16 step of the
@@ -215,6 +227,21 @@ K3_SHAPES = ((32, 20160, 300, 0, 0.001), (32, 30000, 300, 0, 0.001),
              (1, 1, 300, 0, 0.001), (32, 20160, 300, 24, 0.001),
              (8, 20160, 2000, 24, 0.001), (16, 1024, 300, 0, 1.0))
 K3_IOU = 0.6
+# K4 (deformable attention's sampling) at the DETR cell's shapes: 8 heads of
+# 32 channels, 4 levels of a 1024 px canvas (21,760 tokens), 4 points, 300
+# decoder queries, 6 encoder and 6 decoder calls a forward
+K4_LEVELS = ((128, 128), (64, 64), (32, 32), (16, 16))
+K4_HEADS, K4_POINTS, K4_QUERIES, K4_CALLS = 8, 4, 300, 6
+K4_BATCH, K4_IMG = 8, 1024  # the cell's batch and canvas
+# max |K4 - plain| / max |plain|: in bf16 both store the bf16 rounding of
+# fp32 sums that agree to about 1e-6 (at most one bf16 ulp apart: 2^-8 of
+# the largest output; two allowed); in fp32 the sums' order and the pixel
+# coordinate's rounding (loc * W - 0.5 against grid_sample's chain)
+K4_TOL = {"bfloat16": 8e-3, "float32": 2e-5}
+K4 = {"name": "msda_sample", "route": "cuda", "source": "multispectral_"
+      "object_detection_tpu_torch/kernels/csrc/msda.cu", "replaces": "none: "
+      "the grid_sample path of ops/msda.ms_deform_attn (the JAX package has "
+      "no DETR)"}
 K3 = {"name": "nms_suppress", "route": "cuda", "source": "multispectral_"
       "object_detection_tpu_torch/kernels/csrc/nms.cu", "replaces": "none: "
       "the Python loop of ops/nms._suppress (the JAX package's NMS is an "
@@ -524,6 +551,238 @@ def k3_timing(torch, device, card: str) -> dict:
               f"{ms:.4f} ms, {picks} picks, {r['us_per_pick']:.2f} us a "
               f"pick; byte bound {r['bytes_bound_ms']:.4f} ms; plain loop "
               f"{r['plain_ms']:.1f} ms")
+    return rows
+
+
+def msda_inputs(torch, n: int, q: int, ref_batch: int, dtype, gen, device,
+                spread: float = 3.0, far: float = 0.0):
+    """``ms_deform_attn``'s arguments at K4_LEVELS: value and logits normal;
+    offsets the official grid bias (point p of head h at p + 1 pixels along
+    the head's direction) plus normal noise of ``spread`` pixels, a share
+    ``far`` of them 100 times that; an encoder's reference (q = the tokens,
+    ``ref_batch`` 1) each token's pixel centre, a decoder's uniform."""
+    from portbench.reference.deformable_detr_weights import grid_bias
+
+    s = sum(h * w for h, w in K4_LEVELS)
+    nl = len(K4_LEVELS)
+    value = torch.randn(n, s, K4_HEADS, 32, generator=gen)
+    off = grid_bias(K4_HEADS, nl, K4_POINTS) + spread * torch.randn(
+        n, q, K4_HEADS * nl * K4_POINTS * 2, generator=gen)
+    if far:
+        off = torch.where(torch.rand(off.shape, generator=gen) < far,
+                          off * 100, off)
+    logits = 2 * torch.randn(n, q, K4_HEADS * nl * K4_POINTS, generator=gen)
+    if q == s:
+        ref = torch.cat([torch.stack(torch.meshgrid(
+            (torch.arange(w) + 0.5) / w, (torch.arange(h) + 0.5) / h,
+            indexing="xy"), -1).reshape(-1, 2) for h, w in K4_LEVELS])
+        ref = ref[None].expand(ref_batch, -1, -1)
+    else:
+        ref = torch.rand(ref_batch, q, 2, generator=gen)
+    return (value.to(device, dtype), list(K4_LEVELS),
+            ref.contiguous().to(device), off.to(device, dtype),
+            logits.to(device, dtype), K4_POINTS)
+
+
+def phase_k4_checks(torch, device) -> float:
+    """Phase 2, K4: ``ms_deform_attn`` (K4) against ``ms_deform_attn_plain``
+    on the card on the same inputs, bf16 and fp32, at the DETR cell's
+    encoder and decoder shapes (8 images) with offsets of several pixels
+    and 5 % far outside, one launch a call. Returns the worst relative
+    error of the calls."""
+    from multispectral_object_detection_tpu_torch.ops import msda
+    from multispectral_object_detection_tpu_torch.utils import tracing
+
+    gen = torch.Generator().manual_seed(5)
+    s = sum(h * w for h, w in K4_LEVELS)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for q, ref_batch in ((s, 1), (K4_QUERIES, K4_BATCH), (K4_QUERIES, 1)):
+            args = msda_inputs(torch, K4_BATCH, q, ref_batch, dtype, gen,
+                               device, far=0.05)
+            want = msda.ms_deform_attn_plain(*args)
+            before = tracing.counter(msda.COUNTER)
+            got = msda.ms_deform_attn(*args)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)[0]
+            same = float((got == want).float().mean())
+            name = str(dtype).split(".")[1]
+            worst = max(worst, err)
+            print(f"check msda_sample        {name:<8} ({K4_BATCH}, {q}, ref "
+                  f"{ref_batch}): rel err {err:.3g}, equal {same:.4f}")
+            check(err <= K4_TOL[name], f"msda_sample {name} q={q}: rel err "
+                  f"{err:.3g} > {K4_TOL[name]}")
+            check(int(tracing.counter(msda.COUNTER) - before) == 1,
+                  "msda_sample: not one launch")
+            del args, want, got
+    return worst
+
+
+def phase_k4_serving(torch, device) -> dict:
+    """Phase 3b, K4 on the DETR cell's path: a Deformable DETR R50 (bf16,
+    the seeded official init) serves ``Detector.infer`` on a host uint8
+    batch of 8 frames at 1024 px. Counts the K4 launches of one call (12:
+    6 encoder, 6 decoder), and checks its raw logits and boxes against the
+    same call with every MSDA on the plain path. The official init zeroes
+    the box head's last layer, so that boxes would be the reference points
+    whatever MSDA gives; it is drawn non-zero here, so both outputs read
+    the decoder's state."""
+    from multispectral_object_detection_tpu_torch.hub import Detector
+    from multispectral_object_detection_tpu_torch.models import \
+        deformable_detr
+    from multispectral_object_detection_tpu_torch.ops import msda
+    from multispectral_object_detection_tpu_torch.utils import tracing
+
+    gen = torch.Generator().manual_seed(7)
+    det = Detector("deformable_detr_r50", img_size=K4_IMG,
+                   dtype=torch.bfloat16, device=device,
+                   generator=torch.Generator().manual_seed(1))
+    last = det.model.bbox_embed.layers[-1]
+    with torch.no_grad():
+        last.weight.copy_(0.1 * torch.randn(last.weight.shape, generator=gen))
+    x = torch.randint(0, 256, (K4_BATCH, K4_IMG, K4_IMG, 3),
+                      generator=gen, dtype=torch.uint8).numpy()
+    raws = []
+    hook = det.model.register_forward_hook(
+        lambda m, i, o: raws.append([t.float().clone() for t in o]))
+    try:
+        det.infer(x)  # warm-up: builds, algorithms
+        torch.cuda.synchronize()
+        before = tracing.counter(msda.COUNTER)
+        got = det.infer(x)
+        torch.cuda.synchronize()
+        launches = int(tracing.counter(msda.COUNTER) - before)
+        real = deformable_detr.ms_deform_attn
+        deformable_detr.ms_deform_attn = msda.ms_deform_attn_plain
+        try:
+            det.infer(x)
+        finally:
+            deformable_detr.ms_deform_attn = real
+    finally:
+        hook.remove()
+    (logits, boxes), (want_logits, want_boxes) = raws[1], raws[2]
+    errs = {"logits": rel_err(logits, want_logits)[0],
+            "boxes": rel_err(boxes, want_boxes)[0]}
+    size_std = float(boxes[..., 2:].std())
+    print(f"check msda_sample        bfloat16 DETR R50 Detector.infer "
+          f"{K4_BATCH} x {K4_IMG} px: {launches} K4 launches a call; "
+          f"against the plain path logits rel err {errs['logits']:.3g}, "
+          f"boxes {errs['boxes']:.3g} (box sizes' std {size_std:.3g}); "
+          f"{int(got.valid.sum())} detections past conf")
+    check(launches == 2 * K4_CALLS, f"DETR infer: {launches} K4 launches")
+    check(max(errs.values()) <= TOL_BF16_MODEL, f"DETR infer: rel err {errs}")
+    check(size_std > 1e-2, f"DETR infer: box sizes' std {size_std:.3g}: the "
+          "boxes do not read the decoder's state")
+    del det, raws
+    torch.cuda.empty_cache()
+    return {"launches": launches, **errs}
+
+
+def k4_bytes(torch, value, shapes, reference, offsets, logits,
+             points) -> int:
+    """The bytes one K4 call must move through device memory, counted from
+    its inputs: each (image, pixel, head) line of the value that a corner
+    inside its level reads, once (at the cell's encoder shapes nearly the
+    whole value; a decoder call reads a part); the offsets and logits in
+    their dtype; the reference; the output once."""
+    n, s, m, d = value.shape
+    q, nl = offsets.shape[1], len(shapes)
+    dev = value.device
+    off = offsets.float().view(n, q, m, nl, points, 2)
+    ref = reference.float()[:, :, None, None, :]
+    seen = torch.zeros(n * s * m, dtype=torch.bool, device=dev)
+    base = (torch.arange(n, device=dev, dtype=torch.float64) * s).view(
+        n, 1, 1, 1)
+    head = torch.arange(m, device=dev, dtype=torch.float64).view(1, 1, m, 1)
+    start = 0
+    for lid, (h, w) in enumerate(shapes):
+        o = off[:, :, :, lid]
+        # the pixel coordinates as K4 rounds them (fp32)
+        ix = ((ref[..., 0] + o[..., 0] / w) * w - 0.5).floor().double()
+        iy = ((ref[..., 1] + o[..., 1] / h) * h - 0.5).floor().double()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = ix + dx, iy + dy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                line = (base + start + y * w + x) * m + head
+                seen[line[ok].long()] = True
+        start += h * w
+    itemsize = value.element_size()
+    return (int(seen.sum()) * d * itemsize
+            + (offsets.numel() + logits.numel()) * itemsize
+            + reference.numel() * reference.element_size()
+            + n * q * m * d * itemsize)
+
+
+def k4_timing(torch, device, card: str) -> dict:
+    """Phase 7, K4: device ms of one encoder call (8 images of 21,760
+    tokens) and one decoder call (300 queries) at the DETR cell's shapes in
+    bf16 (CUDA-graph replay of 20 calls, so the host's cost between
+    launches is left out; offsets the official grid bias plus 1.5 px of
+    noise, as the benchmark's seeded draw gives them), and a forward's 12
+    calls, each beside K4's own bound: the larger of ``k4_bytes`` at the
+    memory peak and its 10 fp32 FLOPs a channel-sample (4 corners and the
+    weight, as fused multiply-adds on the CUDA cores) at the fp32 peak.
+    Beside it ``work_detr``'s bound, the benchmark's yardstick, which
+    counts the whole value map for every call and 12 B of fp32 locations
+    and weights a sample (K4 reads 6 B of bf16 offsets and logits). Also
+    the host's us to enqueue one ``ms_deform_attn`` call, and the plain
+    twin's ms on the card (CUDA events; the ``grid_sample`` path, the
+    yardstick's ``library_ms``)."""
+    from multispectral_object_detection_tpu_torch.ops import msda
+    from portbench import work, work_detr
+
+    cfg = json.loads((Path(__file__).resolve().parent / "portbench" /
+                      "configs" / "deformable-detr-r50-1024.json").read_text())
+    peaks = work.peaks(torch.cuda.get_device_name(0))
+    calls = work_detr.msda_calls(cfg, K4_BATCH, (K4_IMG, K4_IMG))
+    gen = torch.Generator().manual_seed(6)
+    s = sum(h * w for h, w in K4_LEVELS)
+    rows = {}
+    for name, q, ref_batch, call in (("encoder", s, 1, calls[0]),
+                                     ("decoder", K4_QUERIES, K4_BATCH,
+                                      calls[-1])):
+        args = msda_inputs(torch, K4_BATCH, q, ref_batch, torch.bfloat16, gen,
+                           device, spread=1.5)
+        ms = graph_ms(lambda: msda.msda_sample(*args), replays=20)
+        plain = cuda_ms(lambda: msda.ms_deform_attn_plain(*args), iters=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            msda.ms_deform_attn(*args)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        nbytes = k4_bytes(torch, *args)
+        flops = 10.0 * K4_BATCH * q * K4_HEADS * len(K4_LEVELS) * K4_POINTS \
+            * 32
+        bound = (work.bound_ms([(nbytes, flops, "fp32")], peaks) if peaks
+                 else float("nan"))
+        by = ("fp32 FLOPs" if peaks and flops / peaks["fp32_flops_per_s"]
+              > nbytes / peaks["hbm_bytes_per_s"] else "bytes")
+        bench = work.bound_ms([call], peaks) if peaks else float("nan")
+        rows[name] = {"ms": ms, "plain_ms": plain, "bytes": nbytes,
+                      "flops": flops, "bound_ms": bound, "bound_by": by,
+                      "of_bound": bound / ms, "bench_bound_ms": bench,
+                      "host_us": host_us}
+        print(f"K4 msda_sample {name} call bs{K4_BATCH} q={q} on {card}: "
+              f"{ms:.4f} ms; K4's bound {bound:.4f} ms ({nbytes / 1e6:.1f} "
+              f"MB, {flops / 1e9:.2f} GFLOP fp32; by {by}; "
+              f"{100 * bound / ms:.1f} %); "
+              f"work_detr's bound {bench:.4f} ms; host {host_us:.1f} us to "
+              f"enqueue a call; plain grid_sample path {plain:.3f} ms")
+        del args
+    fwd = {k: K4_CALLS * (rows["encoder"][k] + rows["decoder"][k])
+           for k in ("ms", "plain_ms", "bound_ms")}
+    fwd["of_bound"] = fwd["bound_ms"] / fwd["ms"]
+    fwd["bench_bound_ms"] = (work_detr.msda_bound_ms(
+        cfg, K4_BATCH, (K4_IMG, K4_IMG), peaks) if peaks else float("nan"))
+    rows["forward"] = fwd
+    print(f"K4 msda_sample a forward's {2 * K4_CALLS} calls at "
+          f"bs{K4_BATCH}: {fwd['ms']:.4f} ms, K4's bound "
+          f"{fwd['bound_ms']:.4f} ms ({100 * fwd['of_bound']:.1f} %), "
+          f"work_detr's bound {fwd['bench_bound_ms']:.4f} ms "
+          f"({100 * fwd['bench_bound_ms'] / fwd['ms']:.1f} %); plain "
+          f"{fwd['plain_ms']:.2f} ms")
     return rows
 
 
@@ -3277,9 +3536,12 @@ def main() -> int:
 
     worst = phase_checks(torch, cs, k2, device)
     k3_worst = phase_k3_checks(torch, device)
+    k4_worst = phase_k4_checks(torch, device)
     print("phase 2: every kernel matches its plain version")
     det, batches, stages, launches = phase_main_path(torch, device)
-    print("phase 3: main path served through the kernels")
+    k4_serve = phase_k4_serving(torch, device)
+    print("phase 3: main path and the DETR cell's path served through the "
+          "kernels")
     legs, k2_launches = phase_bench(torch, device)
     launches.update(k2_launches)
     print(f"phase 4: {len(legs)} bench legs ran through the kernels")
@@ -3292,6 +3554,7 @@ def main() -> int:
     rows, xrows = phase_timing(torch, F, cs, k2, device, det, batches,
                                stages, card)
     k3_rows = k3_timing(torch, device, card)
+    k4_rows = k4_timing(torch, device, card)
     del det, batches, stages
     torch.cuda.empty_cache()
     train, run_of_8 = phase_train(torch, device, card)
@@ -3324,6 +3587,18 @@ def main() -> int:
                 "plain_ms": k3["plain_ms"], "bound_ms": k3["bytes_bound_ms"],
                 "bound_by": "bytes; in fact the chain of dependent picks",
                 "library_ms": None, "us_per_pick": k3["us_per_pick"]})
+    k4 = k4_rows["forward"]
+    out.append({**K4, "launches": k4_serve["launches"],  # one infer call
+                "max_abs_err": k4_worst,  # max |K4 - plain| / max |plain|
+                "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+                "bound_ms": k4["bound_ms"], "bound_by": "encoder "
+                f"{k4_rows['encoder']['bound_by']}, decoder "
+                f"{k4_rows['decoder']['bound_by']}; in fact the gathered "
+                "corners through L1 and L2",
+                "bench_bound_ms": k4["bench_bound_ms"],
+                "library_ms": k4["plain_ms"],  # the plain path is grid_sample
+                "encoder_ms": k4_rows["encoder"]["ms"],
+                "decoder_ms": k4_rows["decoder"]["ms"]})
     print(json.dumps({"eval": eval_runs}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))

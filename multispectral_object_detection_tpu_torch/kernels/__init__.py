@@ -41,6 +41,7 @@ SIGNATURES = {
     "c3_bottleneck": {"c3_conv": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P]},
     "nms": {"nms_suppress": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P]},
+    "msda": {"msda_sample": [_P] * 5 + [_I] * 16 + [_P]},
 }
 # dtype codes of the kernels' entry points (csrc/cft_common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -25,13 +25,14 @@ batches (every valid ratio 1):
 
 Convolutions and linear layers run in the model's dtype; the residual
 streams, norms, sampling locations, the attention-weight softmax and the
-sampling's accumulation in fp32 (``ops/msda``).
+sampling's accumulation in fp32 (``ops/msda``: kernel K4 on the card).
 
 Parameters carry the port's names; ``load_state_dict`` also takes the
 official layout (``backbone.0.body.layer1.0.conv1.weight``,
 ``input_proj.0.1.weight``, ``class_embed.5.bias``, ...), renamed on load.
 Spans: ``model.forward``, ``detr.backbone``, ``detr.encoder``,
-``detr.decoder``, ``msda`` (ops/msda, 12 a forward), ``detr.select``.
+``detr.decoder``, ``msda`` (ops/msda, 12 a forward; on the card each holds
+one ``k4.msda``), ``detr.select``.
 """
 
 from __future__ import annotations

@@ -34,15 +34,16 @@ Spans: ``detector.infer``, ``detector.upload`` (hub.Detector);
 ``eval.summary`` (train/evaluator); ``sync.nms_exit`` only on NMS's plain
 path (CPU tensors), as K3 reads nothing back; ``detr.backbone``,
 ``detr.encoder``, ``detr.decoder``, ``detr.select``
-(models/deformable_detr) and ``msda`` (ops/msda, each deformable-attention
-sampling call). Counters: ``nms.candidates``
-and ``nms.iterations`` (ops/nms: on the CPU the candidates read by the
-first exit check and the loop's steps, host ints; on CUDA device tensors
-that K3 wrote, the candidates and the batch's largest number of picks);
-``k1.<kernel>`` (ops/cft_stack), ``k2.c3_bottleneck`` (ops/c3_bottleneck)
-and ``k3.nms_suppress`` (ops/nms), one per kernel launch; ``msda.calls``
-and ``msda.samples`` (ops/msda: calls, and queries x heads x levels x
-points sampled).
+(models/deformable_detr), ``msda`` (ops/msda, each deformable-attention
+sampling call) and ``k4.msda`` (inside ``msda``, each K4 launch).
+Counters: ``nms.candidates`` and ``nms.iterations`` (ops/nms: on the CPU
+the candidates read by the first exit check and the loop's steps, host
+ints; on CUDA device tensors that K3 wrote, the candidates and the batch's
+largest number of picks);
+``k1.<kernel>`` (ops/cft_stack), ``k2.c3_bottleneck`` (ops/c3_bottleneck),
+``k3.nms_suppress`` (ops/nms) and ``k4.msda`` (ops/msda), one per kernel
+launch; ``msda.calls`` and ``msda.samples`` (ops/msda: calls, and
+queries x heads x levels x points sampled).
 """
 
 from __future__ import annotations
